@@ -3,28 +3,39 @@
 
     python3 chip_smoke.py
 
-It needs one CUDA device and runs at the main path's full size, RMAT scale
-20; for a quick check at small sizes run ``tests/test_torch_cuda.py``.
-Phases, each raising on failure:
+It needs one CUDA device and runs both of the port's paths at full size:
+the graph engine at RMAT scale 20, and the two-tower retrieval server at
+the full width of ``make_config()`` (18.54 GB of tables). For a quick check
+at small sizes run ``tests/test_torch_cuda.py``. Phases, each raising on
+failure:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
-2. build — both CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
-3. kernels vs their plain PyTorch versions on the card, at the main path's
-   shapes (RMAT scale 20, Graph500 parameters, seed 3);
-4. main path — fig20's tenant mix (6 PageRank-pull, 4 BFS, 2 degree-count
-   sessions) through ``MultiQueryEngine`` with the ``cuda`` backend, stealing
-   and heterogeneous fusion on; every result checked against its numpy
-   oracle, each kernel's launch count > 0, and the modeled throughput equal
-   to the same run on the ``modeled`` backend;
-5. timing — CUDA-event medians per kernel beside the plain version, one
-   PyTorch library call and the card's lower bound, printed as one JSON line;
-6. isolation — neither JAX nor the JAX package was imported.
+2. build — all four CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+   sm_90a, one nvcc per source, in parallel);
+3. graph kernels vs their plain PyTorch versions on the card, at the main
+   path's shapes (RMAT scale 20, Graph500 parameters, seed 3);
+4. graph main path — fig20's tenant mix (6 PageRank-pull, 4 BFS, 2
+   degree-count sessions) through ``MultiQueryEngine`` with the ``cuda``
+   backend, stealing and heterogeneous fusion on; every result checked
+   against its numpy oracle, each kernel's launch count > 0, and the
+   modeled throughput equal to the same run on the ``modeled`` backend;
+5. graph timing — CUDA-event medians per kernel beside the plain version,
+   one PyTorch library call and the card's lower bound;
+6. retrieval server — with the RMAT graph freed: a 2^20-candidate corpus
+   through the item tower, then 8 requests at each of batch 1, 4, 64 and
+   512 (user tower, then ``score_topk`` with k=128), every result held
+   against plain PyTorch on the card, both kernels' launch counts > 0, the
+   planned group widths, wall latencies, a profile of one round, and both
+   kernels' times at the server's shapes;
+7. isolation — neither JAX nor the JAX package was imported.
 
-The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-outside a checkout of the repository, it exits non-zero and prints no result.
+The kernels' times go out as one JSON line. The last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
+checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -47,6 +58,24 @@ PR_ITERS = 5
 # times float32 epsilon, ~2e-5 for the longest rows of this graph
 SPMV_RTOL, SPMV_ATOL = 1e-4, 1e-12
 PR_RTOL, PR_ATOL = 2e-4, 1e-8  # the JAX package's PageRank tolerance
+
+# the retrieval server (examples/serve_retrieval.py) at the full width of
+# configs/two_tower_retrieval.py::make_config(), with the reference's cell
+# shapes (launch/steps.py): retrieval_cand is one query against 2^20
+# candidates with top_k=128, serve_p99 a batch of 512
+N_ITEMS = 1_048_576
+CORPUS_CHUNK = 65_536
+BATCHES = (1, 4, 64, 512)  # retrieval_cand, the example's 4 and 64, serve_p99
+REQUESTS = 8               # per batch size
+TOP_K = 128
+# the example's (batch, queue_depth) pairs, then retrieval_cand's and serve_p99's
+PLAN_CASES = ((4, 1), (64, 1), (4, 32), (1, 1), (512, 1))
+# float32 dot products of unit-norm 256-vectors, summed in another order:
+# the JAX package's scoring tolerance (tests/test_kernels.py)
+SCORE_RTOL = SCORE_ATOL = 1e-5
+# tower outputs (unit rows, entries ~0.06) whose bag sums differ in order
+# only (the plain version's atomic adds): as the CPU parity tests hold them
+EMB_RTOL, EMB_ATOL = 1e-5, 1e-6
 
 TIMED_BATCHES, TIMED_PER_BATCH = 5, 20
 # published H100 peaks (NVIDIA data sheets): HBM bytes/s by part, and the
@@ -156,41 +185,16 @@ def run_mix(core, alg, graph, backend: str):
     return rep, made, wall
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    if torch.cuda.device_count() != 1:
-        print(f"chip_smoke: needs one CUDA device, sees {torch.cuda.device_count()}", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
+def graph_path(dev: torch.device, bw: float) -> list[dict]:
+    """Phases 3-5: the graph kernels against their plain versions, fig20's
+    mix through the ``cuda`` backend, and the kernels' times."""
     from repro_torch import algorithms as alg
     from repro_torch import core
     from repro_torch.graph import rmat_graph
-    from repro_torch.kernels import _build
     from repro_torch.kernels.degree_count import degree_count_cuda, degree_count_plain
     from repro_torch.kernels.spmv import (
         DST_TILE, build_tiles, spmv_rows_cuda, spmv_rows_plain, spmv_tiles,
     )
-
-    dev = torch.device("cuda")
-    t_start = time.perf_counter()
-
-    # 1. environment ---------------------------------------------------------
-    smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    log(smi)
-    bw = hbm_bytes_per_s(smi)
-
-    # 2. build ---------------------------------------------------------------
-    t0 = time.perf_counter()
-    secs = _build.build("spmv", "degree_count")
-    log(f"build: {time.perf_counter() - t0:.2f} s wall, per source {secs} (nvcc sm_90a)")
-    for name, text in _build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
 
     # 3. kernels vs plain versions at the main path's shapes ------------------
     t0 = time.perf_counter()
@@ -348,8 +352,254 @@ def main() -> int:
         "launches": launches["degree_count"], "max_abs_err": float(dc_err),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
     })
+    return kernels
 
-    # 6. isolation -------------------------------------------------------------
+
+@torch.no_grad()
+def retrieval_path(dev: torch.device, bw: float) -> list[dict]:
+    """Phase 6: the two-tower retrieval server at ``make_config()``'s full
+    width. Builds the 2^20-candidate corpus with the item tower, answers
+    REQUESTS requests at each batch size (user tower, then ``score_topk``),
+    holds every result against plain PyTorch on the card, and times both
+    kernels at the shapes the server gave them."""
+    from torch.nn import functional as F
+
+    from repro_torch import core
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda, embedding_bag_plain
+    from repro_torch.kernels.scoring import score_topk, scoring_cuda, scoring_plain
+    from repro_torch.launch.steps import RECSYS_SHAPES
+    from repro_torch.models.recsys import TwoTower
+    from repro_torch.serving import plan_group_width
+
+    if (RECSYS_SHAPES["retrieval_cand"]["n_candidates"], RECSYS_SHAPES["retrieval_cand"]["batch"],
+            RECSYS_SHAPES["serve_p99"]["batch"]) != (N_ITEMS, BATCHES[0], BATCHES[-1]):
+        raise AssertionError("the cell shapes moved: update N_ITEMS and BATCHES")
+    cfg = get_arch("two-tower-retrieval").make_config()
+    d = cfg.tower_mlp[-1]
+    t0 = time.perf_counter()
+    model = TwoTower(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    tables = [*model.user_tables.values(), *model.item_tables.values()]
+    table_bytes = sum(t.numel() * t.element_size() for t in tables)
+    log(f"retrieval: {cfg.name} tables {table_bytes / 1e9:.2f} GB "
+        f"(largest {max(t.numel() for t in tables)} floats), built in {time.perf_counter() - t0:.1f} s")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def features(fields, b: int, last_rows: int = 0) -> dict:
+        """Ids drawn from the seed; multi-hot fields carry weights, their last
+        quarter 0 (the fixed hot-size's padding). The first ``last_rows``
+        rows hold only id vocab - 1: the tables' last rows."""
+        out = {}
+        for f in fields:
+            ids = torch.randint(0, f.vocab, (b, f.multi_hot), generator=gen, device=dev, dtype=torch.int32)
+            ids[:last_rows] = f.vocab - 1
+            out[f.name] = ids
+            if f.multi_hot > 1:
+                w = torch.rand(b, f.multi_hot, generator=gen, device=dev)
+                w[:, f.multi_hot - f.multi_hot // 4 :] = 0.0
+                out[f.name + "_w"] = w
+        return out
+
+    def plain_tower(tables_, tower, feats, fields, b: int) -> torch.Tensor:
+        """The tower with the plain EmbeddingBag: the model's weights, no kernel."""
+        cols = []
+        for f in fields:
+            segs = torch.arange(b, device=dev).repeat_interleave(f.multi_hot)
+            w = feats.get(f.name + "_w")
+            cols.append(embedding_bag_plain(
+                tables_[f.name], feats[f.name].reshape(-1), segs,
+                None if w is None else w.reshape(-1), b,
+            ))
+        out = tower(torch.cat(cols, dim=-1))
+        return out / torch.linalg.vector_norm(out, dim=-1, keepdim=True).clamp_min(1e-6)
+
+    # set-up: every request's and every item's features, made on the card;
+    # the first corpus chunk and each batch size's first request read the
+    # tables' last rows
+    item_feats = features(cfg.item_fields, N_ITEMS, last_rows=4)
+    user_feats = {b: [features(cfg.user_fields, b, last_rows=1 if r == 0 else 0) for r in range(REQUESTS)]
+                  for b in BATCHES}
+    torch.cuda.synchronize()
+
+    # the main path: corpus, then the requests ------------------------------------
+    scoring_cuda.launches = 0
+    embedding_bag_cuda.launches = 0
+    t0 = time.perf_counter()
+    corpus = torch.empty(N_ITEMS, d, device=dev)
+    for c0 in range(0, N_ITEMS, CORPUS_CHUNK):
+        chunk = {k: v[c0 : c0 + CORPUS_CHUNK] for k, v in item_feats.items()}
+        corpus[c0 : c0 + CORPUS_CHUNK] = model.item_embedding(chunk, CORPUS_CHUNK)
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t0
+    answers, lat = {}, {b: [] for b in BATCHES}
+    for b in BATCHES:
+        for r, feats in enumerate(user_feats[b]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u = model.user_embedding(feats, b)
+            vals, idx = score_topk(u, corpus, TOP_K)
+            torch.cuda.synchronize()
+            lat[b].append(time.perf_counter() - t0)
+            answers[b, r] = (u, vals, idx)
+    launches = {"scoring": scoring_cuda.launches, "embedding_bag": embedding_bag_cuda.launches}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the retrieval server never launched the {name} kernel")
+    log(f"retrieval main path: corpus {N_ITEMS} x {d} in {corpus_s:.3f} s, "
+        f"{sum(map(len, lat.values()))} requests, launches {launches}")
+
+    # every result against plain PyTorch on the card ---------------------------
+    chunk = {k: v[:CORPUS_CHUNK] for k, v in item_feats.items()}
+    want = plain_tower(model.item_tables, model.item_tower, chunk, cfg.item_fields, CORPUS_CHUNK)
+    torch.testing.assert_close(corpus[:CORPUS_CHUNK], want, rtol=EMB_RTOL, atol=EMB_ATOL)
+    swapped = 0
+    for (b, r), (u, vals, idx) in answers.items():
+        u_plain = plain_tower(model.user_tables, model.user_tower, user_feats[b][r], cfg.user_fields, b)
+        torch.testing.assert_close(u, u_plain, rtol=EMB_RTOL, atol=EMB_ATOL)
+        s_plain = scoring_plain(u_plain, corpus)
+        pv, pi = torch.topk(s_plain, TOP_K, dim=-1)
+        torch.testing.assert_close(vals, pv, rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        # an index may differ from the plain one only between near-equal
+        # scores: each chosen candidate scores as the plain rank's value
+        torch.testing.assert_close(s_plain.gather(1, idx), pv, rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        swapped += int((idx != pi).sum())
+        del s_plain
+    log(f"retrieval results: the corpus chunk with the tables' last rows and all "
+        f"{len(answers)} answers match plain PyTorch; {swapped} of "
+        f"{sum(b * TOP_K * REQUESTS for b in BATCHES)} top-k indices sit elsewhere among near-equal scores")
+
+    plan = {f"batch={b},queue={q}": plan_group_width(
+        core.XEON_E5_2660V4, batch=b, cache_len=N_ITEMS, n_kv_heads=1,
+        head_dim=d, n_layers=1, queue_depth=q) for b, q in PLAN_CASES}
+    med = {b: float(np.median(lat[b])) for b in BATCHES}
+    log(json.dumps({"retrieval_path": {
+        "table_bytes": table_bytes, "n_candidates": N_ITEMS, "top_k": TOP_K,
+        "corpus_build_s": corpus_s,
+        "latency_ms_median": {str(b): med[b] * 1e3 for b in BATCHES},
+        "latency_ms_all": {str(b): [x * 1e3 for x in lat[b]] for b in BATCHES},
+        "requests_per_s": {str(b): 1.0 / med[b] for b in BATCHES},
+        "queries_per_s": {str(b): b / med[b] for b in BATCHES},
+        "launches": launches, "topk_index_swaps": swapped,
+        "planned_group_width_xeon_model": plan,
+    }}))
+
+    # where one round of requests (one per batch size) spends device time
+    def one_round():
+        for b in BATCHES:
+            score_topk(model.user_embedding(user_feats[b][0], b), corpus, TOP_K)
+
+    by_name, pwall = device_time_by_kernel(one_round)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log(json.dumps({"retrieval_round_profile": {
+        "wall_s": pwall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / (pwall * 1e3),
+        "top_kernels_ms": {k[:60]: v for k, v in top},
+    }}))
+
+    # kernel times at the server's shapes -----------------------------------------
+    score_err, score_shapes = 0.0, []
+    for b in (1, 64, 512):
+        q = answers[b, 0][0]
+        got, want = scoring_cuda(q, corpus), scoring_plain(q, corpus)
+        torch.testing.assert_close(got, want, rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        score_err = max(score_err, float((got - want).abs().max()))
+        del got, want
+        b_ms, b_by = bound_ms(4 * (b * d + N_ITEMS * d + b * N_ITEMS), 2 * b * N_ITEMS * d, bw)
+        score_shapes.append({
+            "shape": f"B={b} N={N_ITEMS} D={d}",
+            "ms": time_ms(lambda: scoring_cuda(q, corpus)),
+            "plain_ms": time_ms(lambda: scoring_plain(q, corpus)),
+            "library_ms": time_ms(lambda: torch.matmul(q, corpus.T)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    main_shape = score_shapes[-1]  # serve_p99: the most device time per request
+    kernels = [{
+        "name": "scoring", "route": "cuda", "source": "src/repro_torch/csrc/scoring.cu",
+        "replaces": "src/repro/kernels/scoring/scoring.py:41",
+        "launches": launches["scoring"], "max_abs_err": score_err,
+        **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "at": main_shape["shape"], "shapes": score_shapes,
+    }]
+
+    bag_err, bag_shapes = 0.0, []
+    for side, field, feats, b in (("item", "item_tags", item_feats, N_ITEMS),
+                                  ("user", "user_history", user_feats[512][0], 512)):
+        table = (model.item_tables if side == "item" else model.user_tables)[field]
+        ids, w = feats[field].reshape(-1), feats[field + "_w"].reshape(-1)
+        hot = ids.numel() // b
+        segs = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(hot)
+        got = embedding_bag_cuda(table, ids, segs, w, b)
+        want = embedding_bag_plain(table, ids, segs, w, b)
+        torch.testing.assert_close(got, want, rtol=EMB_RTOL, atol=EMB_ATOL)
+        bag_err = max(bag_err, float((got - want).abs().max()))
+        del got, want
+        offsets = torch.arange(0, ids.numel(), hot, dtype=torch.int32, device=dev)
+        rows = torch.unique(ids).numel()  # each touched row read once
+        n = ids.numel()
+        b_ms, b_by = bound_ms(4 * (rows * d + 3 * n + b * d), 2 * n * d, bw)
+        bag_shapes.append({
+            "shape": f"{field}: {b} bags x {hot} ids, {rows} distinct rows of {table.shape[0]}",
+            "ms": time_ms(lambda: embedding_bag_cuda(table, ids, segs, w, b)),
+            "plain_ms": time_ms(lambda: embedding_bag_plain(table, ids, segs, w, b)),
+            "library_ms": time_ms(lambda: F.embedding_bag(
+                ids, table, offsets, mode="sum", per_sample_weights=w)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    main_shape = bag_shapes[0]  # the corpus's item_tags field
+    kernels.append({
+        "name": "embedding_bag", "route": "cuda", "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:59",
+        "launches": launches["embedding_bag"], "max_abs_err": bag_err,
+        **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "at": main_shape["shape"], "shapes": bag_shapes,
+    })
+    return kernels
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() != 1:
+        print(f"chip_smoke: needs one CUDA device, sees {torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # 1. environment ---------------------------------------------------------
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    log(smi)
+    bw = hbm_bytes_per_s(smi)
+
+    # 2. build ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    secs = _build.build("spmv", "degree_count", "scoring", "embedding_bag")
+    log(f"build: {time.perf_counter() - t0:.2f} s wall, per source {secs} (nvcc sm_90a)")
+    for name, text in _build.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # 3-5. the graph engine: kernels, main path, timing -----------------------
+    kernels = graph_path(dev, bw)
+    gc.collect()
+    torch.cuda.empty_cache()  # the RMAT graph is gone; the retrieval tables need the room
+
+    # 6. the retrieval server at full width ---------------------------------------
+    t0 = time.perf_counter()
+    kernels += retrieval_path(dev, bw)
+    log(f"retrieval phase: {time.perf_counter() - t0:.1f} s")
+
+    # 7. isolation -------------------------------------------------------------
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     if leaked:
         raise AssertionError(f"imported the JAX side: {leaked}")

@@ -1,0 +1,18 @@
+"""Arch registry over the configs ported so far. The reference's registry
+(``repro.configs.registry``) knows eleven archs; an arch not ported yet
+raises ``KeyError`` naming the ones that are."""
+from __future__ import annotations
+
+from importlib import import_module
+
+_MODULES = {
+    "two-tower-retrieval": "two_tower_retrieval",
+}
+
+PORTED_ARCHS = list(_MODULES)
+
+
+def get_arch(arch_id: str):
+    if arch_id not in _MODULES:
+        raise KeyError(f"arch {arch_id!r} is not ported; ported: {PORTED_ARCHS}")
+    return import_module(f"{__package__}.{_MODULES[arch_id]}")

@@ -1,0 +1,84 @@
+"""EmbeddingBag: the CUDA kernel's wrapper and its plain version.
+
+Replaces ``repro/kernels/embedding_bag/embedding_bag.py::embedding_bag_pallas``.
+Both functions return the float32 ``[num_bags, D]`` per-bag sums
+``out[b] = Σ weights[i] * table[ids[i]]`` over the ``i`` with
+``segments[i] == b``; a bag with no ids comes out as zeros. ``ids`` and
+``segments`` are int32, ``segments`` sorted non-decreasing (the kernel
+finds each bag's ids from it), ``weights`` float32 or ``None`` for all
+ones. The source and its design note are ``csrc/embedding_bag.cu``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._build import check, load
+
+
+def embedding_bag_plain(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    segments: torch.Tensor,
+    weights: torch.Tensor | None,
+    num_bags: int,
+) -> torch.Tensor:
+    """Plain PyTorch version: gather, scale, ``index_add_`` per bag."""
+    rows = table[ids.to(torch.int64)]
+    if weights is not None:
+        rows = rows * weights[:, None]
+    out = torch.zeros(num_bags, table.shape[1], dtype=table.dtype, device=table.device)
+    return out.index_add_(0, segments.to(torch.int64), rows)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load("embedding_bag")
+    fn = lib.embedding_bag
+    if fn.argtypes is None:  # first load: declare the C signature
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        fn.argtypes = [p, i64, p, p, p, i64, p, p, i64, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def embedding_bag_cuda(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    segments: torch.Tensor,
+    weights: torch.Tensor | None,
+    num_bags: int,
+) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream. ``segments`` must be
+    sorted and ``ids`` lie in ``[0, V)``: both are the caller's to ensure
+    (checking them would cost a sync with the host)."""
+    dev = table.device
+    named = [("table", table, torch.float32, 2), ("ids", ids, torch.int32, 1),
+             ("segments", segments, torch.int32, 1)]
+    if weights is not None:
+        named.append(("weights", weights, torch.float32, 1))
+    for name, t, dtype, dim in named:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"embedding_bag_cuda: {name} must be on {dev}, got {t.device}")
+        if t.dtype != dtype or t.dim() != dim or not t.is_contiguous():
+            raise ValueError(
+                f"embedding_bag_cuda: {name} must be a contiguous {dim}-D {dtype} tensor"
+            )
+    n = ids.shape[0]
+    if segments.shape[0] != n or (weights is not None and weights.shape[0] != n):
+        raise ValueError("embedding_bag_cuda: ids, segments and weights differ in length")
+    out = torch.empty(num_bags, table.shape[1], dtype=torch.float32, device=dev)
+    if num_bags <= 0:
+        return out
+    offsets = torch.empty(num_bags + 1, dtype=torch.int64, device=dev)  # kernel scratch
+    status = _lib().embedding_bag(
+        table.data_ptr(), table.shape[1], ids.data_ptr(), segments.data_ptr(),
+        None if weights is None else weights.data_ptr(), n, offsets.data_ptr(),
+        out.data_ptr(), num_bags, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(status, "embedding_bag")
+    embedding_bag_cuda.launches += 1
+    return out
+
+
+embedding_bag_cuda.launches = 0

@@ -1,0 +1,9 @@
+"""Plain-torch oracle: gather, scale, segment sum (the reference's
+``take`` + ``segment_sum``)."""
+import torch
+
+
+def embedding_bag_ref(table, ids, segments, weights, num_bags: int) -> torch.Tensor:
+    rows = table[ids.to(torch.int64)] * weights[:, None]
+    out = torch.zeros(num_bags, table.shape[1], dtype=table.dtype, device=table.device)
+    return out.index_add_(0, segments.to(torch.int64), rows)

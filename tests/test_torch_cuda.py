@@ -14,7 +14,10 @@ from repro_torch import algorithms as alg  # noqa: E402
 from repro_torch import core  # noqa: E402
 from repro_torch.graph import rmat_graph  # noqa: E402
 from repro_torch.kernels.degree_count import degree_count_cuda, degree_count_plain  # noqa: E402
+from repro_torch.kernels.embedding_bag import embedding_bag_cuda, embedding_bag_plain  # noqa: E402
+from repro_torch.kernels.scoring import scoring_cuda, scoring_plain  # noqa: E402
 from repro_torch.kernels.spmv import build_tiles, spmv_rows_cuda, spmv_rows_plain, spmv_tiles  # noqa: E402
+from repro_torch.models.recsys import FieldSpec, TwoTower, TwoTowerConfig  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -23,12 +26,23 @@ pytestmark = pytest.mark.cuda
 # relative error grows like sqrt(row length) times float32 epsilon, ~1e-5
 # for the ~21k-edge hub row below, so 1e-4 (as in chip_smoke.py)
 SPMV_RTOL, SPMV_ATOL = 1e-4, 1e-6
+# float32 dot products of D <= 256 terms of unit-norm rows (as the towers
+# emit them) summed in another order (FMA tiles vs the library's product,
+# both without TF32): errors of about sqrt(D) float32 epsilons, well inside
+# the JAX package's scoring tolerance
+SCORE_RTOL = SCORE_ATOL = 1e-5
+
+
+def _unit_rows(shape, g, dev):
+    x = torch.randn(*shape, device=dev, generator=g)
+    return x / x.norm(dim=-1, keepdim=True)
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain products in full float32
     return torch.device("cuda")
 
 
@@ -131,3 +145,100 @@ def test_cuda_backend_mixed_sessions(cuda):
     mrep, _ = run("modeled")
     assert rep.makespan_modeled_ns == mrep.makespan_modeled_ns
     assert [r.traces for r in rep.records] == [r.traces for r in mrep.records]
+
+
+@pytest.mark.parametrize("b", [1, 5, 64])
+@pytest.mark.parametrize("n,d", [(2048, 16), (6144, 256), (2048, 256), (6144, 16)])
+def test_scoring_kernel_matches_plain(cuda, b, n, d):
+    g = torch.Generator(device=cuda).manual_seed(b * 7 + n + d)
+    q = _unit_rows((b, d), g, cuda)
+    c = _unit_rows((n, d), g, cuda)
+    before = scoring_cuda.launches
+    got = scoring_cuda(q, c)
+    assert scoring_cuda.launches == before + 1
+    torch.testing.assert_close(got, scoring_plain(q, c), rtol=SCORE_RTOL, atol=SCORE_ATOL)
+
+
+def test_scoring_kernel_masks_ragged_depth_and_batch(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = _unit_rows((70, 37), g, cuda)  # 70 queries: a second, ragged query tile
+    c = _unit_rows((4096, 37), g, cuda)
+    torch.testing.assert_close(scoring_cuda(q, c), scoring_plain(q, c), rtol=SCORE_RTOL, atol=SCORE_ATOL)
+
+
+@pytest.mark.parametrize("d", [256, 16, 6])
+def test_embedding_bag_kernel_matches_plain(cuda, d):
+    rng = np.random.default_rng(d)
+    v, n, bags = 3000, 5000, 700
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(cuda)
+    ids = rng.integers(0, v, n).astype(np.int32)
+    ids[:50] = 17  # repeated ids
+    segs = np.sort(rng.integers(0, bags, n)).astype(np.int32)
+    segs[segs == 3] = 4  # bag 3 empty
+    w = rng.normal(size=n).astype(np.float32)
+    w[::7] = 0.0  # weight-0 ids (the fixed hot-size padding)
+    ids_t, segs_t, w_t = (torch.from_numpy(a).to(cuda) for a in (ids, segs, w))
+    for weights in (None, w_t):
+        before = embedding_bag_cuda.launches
+        got = embedding_bag_cuda(table, ids_t, segs_t, weights, bags)
+        again = embedding_bag_cuda(table, ids_t, segs_t, weights, bags)
+        assert embedding_bag_cuda.launches == before + 2
+        want = embedding_bag_plain(table, ids_t, segs_t, weights, bags)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, again)  # no atomics: bit-repeatable
+        assert not got[3].any()
+    # trailing bags with no ids at all, and no ids at all
+    out = embedding_bag_cuda(table, ids_t[:10], segs_t[:10], None, bags)
+    assert not out[int(segs_t[9]) + 1 :].any()
+    assert not embedding_bag_cuda(table, ids_t[:0], segs_t[:0], None, 5).any()
+
+
+def test_new_wrappers_raise_instead_of_falling_back(cuda):
+    q = torch.zeros(2, 8, device=cuda)
+    c = torch.zeros(2048, 8, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        scoring_cuda(q.double(), c)
+    with pytest.raises(ValueError, match="must be on"):
+        scoring_cuda(q.cpu(), c)
+    with pytest.raises(ValueError, match="contiguous"):
+        scoring_cuda(torch.zeros(8, 2, device=cuda).T, c)
+    with pytest.raises(ValueError, match="multiple"):
+        scoring_cuda(q, c[:2000])
+    table = torch.zeros(10, 4, device=cuda)
+    ids = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        embedding_bag_cuda(table, ids.long(), ids, None, 2)
+    with pytest.raises(ValueError, match="must be on"):
+        embedding_bag_cuda(table, ids.cpu(), ids, None, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag_cuda(torch.zeros(4, 10, device=cuda).T, ids, ids, None, 2)
+
+
+def test_two_tower_on_card_equals_cpu(cuda):
+    cfg = TwoTowerConfig(
+        embed_dim=32, tower_mlp=(64, 32),
+        user_fields=(FieldSpec("user_id", 4096), FieldSpec("user_history", 2048, multi_hot=8)),
+        item_fields=(FieldSpec("item_id", 4096), FieldSpec("item_tags", 512, multi_hot=4)),
+    )
+    cpu = TwoTower(cfg, seed=1, device="cpu")
+    card = TwoTower(cfg, seed=2, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(3)
+
+    def feats(fields, b):
+        out = {f.name: rng.integers(0, f.vocab, (b, f.multi_hot)).astype(np.int32) for f in fields}
+        out[fields[1].name + "_w"] = rng.random((b, fields[1].multi_hot)).astype(np.float32)
+        return out
+
+    items = feats(cfg.item_fields, 4000)
+    users = feats(cfg.user_fields, 8)
+    to = lambda fs, dev: {k: torch.from_numpy(v).to(dev) for k, v in fs.items()}  # noqa: E731
+    corpus_cpu = cpu.item_embedding(to(items, "cpu"), 4000)
+    corpus_card = card.item_embedding(to(items, cuda), 4000)
+    torch.testing.assert_close(corpus_card.cpu(), corpus_cpu, rtol=1e-5, atol=1e-6)
+    s0, e0 = scoring_cuda.launches, embedding_bag_cuda.launches
+    v_card, i_card = card.score_candidates(to(users, cuda), corpus_card, top_k=16)
+    assert scoring_cuda.launches == s0 + 1 and embedding_bag_cuda.launches == e0 + 2
+    v_cpu, i_cpu = cpu.score_candidates(to(users, "cpu"), corpus_cpu, top_k=16)
+    torch.testing.assert_close(v_card.cpu(), v_cpu, rtol=1e-5, atol=1e-5)
+    assert torch.equal(i_card.cpu(), i_cpu)
