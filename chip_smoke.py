@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py
 
-It needs one CUDA device and runs both of the port's paths at full size:
-the graph engine at RMAT scale 20, and the two-tower retrieval server at
-the full width of ``make_config()`` (18.54 GB of tables). For a quick check
-at small sizes run ``tests/test_torch_cuda.py``. Phases, each raising on
-failure:
+It needs one CUDA device and runs the port's three paths at full size:
+the graph engine at RMAT scale 20, the two-tower retrieval server at the
+full width of ``make_config()`` (18.54 GB of tables), and TinyLlama-1.1B
+serving at full width and depth. For a quick check at small sizes run
+``tests/test_torch_cuda.py``. Phases, each raising on failure:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
-2. build — all four CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+2. build — all five CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
    sm_90a, one nvcc per source, in parallel);
 3. graph kernels vs their plain PyTorch versions on the card, at the main
    path's shapes (RMAT scale 20, Graph500 parameters, seed 3);
@@ -27,7 +27,19 @@ failure:
    against plain PyTorch on the card, both kernels' launch counts > 0, the
    planned group widths, wall latencies, a profile of one round, and both
    kernels' times at the server's shapes;
-7. isolation — neither JAX nor the JAX package was imported.
+7. LM serving — with the retrieval tables freed: TinyLlama-1.1B
+   (``configs/tinyllama_1_1b.py::make_config()``, bf16, random weights
+   from the seed) prefills 8 prompts of 2048 tokens through the
+   flash-attention kernel (22 launches), decodes 32 greedy steps, and runs
+   the same prefill again with the kernel's plain version passed as the
+   attention: logits and caches within bf16 tolerances, greedy tokens
+   equal wherever the plain path's top-2 margin exceeds the logits'
+   difference. Then ``ServingEngine`` serves 8 requests (prompts of 16–48
+   tokens, 16 new tokens each) by continuous batching. The kernel is held
+   against its plain version on layer 0's q/k/v at the served shape and at
+   ``prefill_32k``'s sequence (B=1, S=32768), in bf16 and float32, and
+   timed beside the plain version and ``scaled_dot_product_attention``;
+8. isolation — neither JAX nor the JAX package was imported.
 
 The kernels' times go out as one JSON line. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -35,6 +47,7 @@ checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -77,11 +90,31 @@ SCORE_RTOL = SCORE_ATOL = 1e-5
 # only (the plain version's atomic adds): as the CPU parity tests hold them
 EMB_RTOL, EMB_ATOL = 1e-5, 1e-6
 
+# TinyLlama-1.1B serving: 8 prompts of 2048 tokens, then 32 greedy steps;
+# the engine's 8 requests with prompts of 16-48 tokens and 16 new tokens
+LM_ARCH = "tinyllama-1.1b"
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 2048, 32
+ENGINE_REQUESTS, ENGINE_MAX_BATCH, ENGINE_MAX_LEN, ENGINE_NEW = 8, 8, 1024, 16
+ENGINE_PROMPT = (16, 48)
+ENGINE_CHECKED = 2  # requests whose tokens are replayed through prefill + decode
+# bf16 attention outputs of the same float32 math summed in another order
+# round one bf16 step apart at most: torch.testing's bf16 defaults
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1.6e-2, 1e-5
+FLASH_F32_TOL = 2e-5  # the JAX package's flash tolerance (tests/test_kernels.py)
+# Two bf16 runs of 22 layers whose roundings differ anywhere drift apart by
+# the network's own bf16 noise, which no fixed tolerance bounds, so both
+# paths are held against the same weights in float32: the kernel path's
+# logits and caches may stray from it no further than the plain path's, up
+# to these ratios of RMS and largest deviation
+NOISE_RMS_RATIO, NOISE_MAX_RATIO = 1.25, 1.5
+
 TIMED_BATCHES, TIMED_PER_BATCH = 5, 20
-# published H100 peaks (NVIDIA data sheets): HBM bytes/s by part, and the
-# float32/int32 CUDA-core rate for the adds these kernels do
+# published H100 peaks (NVIDIA data sheets): HBM bytes/s by part, the
+# float32/int32 CUDA-core rate for the adds these kernels do, and the dense
+# bf16 tensor-core rate
 HBM_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 CUDA_CORE_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -103,12 +136,13 @@ def hbm_bytes_per_s(name: str) -> float:
     return HBM_BYTES_PER_S["SXM"]
 
 
-def bound_ms(n_bytes: float, n_ops: float, bw: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / CUDA_CORE_OPS_PER_S * 1e3
+def bound_ms(n_bytes: float, n_ops: float, bw: float,
+             ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(fn, warmup: int = 3) -> float:
+def time_ms(fn, warmup: int = 3, batches: int = TIMED_BATCHES, per_batch: int = TIMED_PER_BATCH) -> float:
     """Per-launch device time: CUDA events around batches of back-to-back
     launches (so host overhead overlaps the device work), median over the
     batches, after warm-up."""
@@ -116,16 +150,16 @@ def time_ms(fn, warmup: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     pairs = []
-    for _ in range(TIMED_BATCHES):
+    for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(TIMED_PER_BATCH):
+        for _ in range(per_batch):
             fn()
         b.record()
         pairs.append((a, b))
     torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) / TIMED_PER_BATCH for a, b in pairs]))
+    return float(np.median([a.elapsed_time(b) / per_batch for a, b in pairs]))
 
 
 def device_time_by_kernel(run) -> tuple[dict[str, float], float]:
@@ -558,6 +592,261 @@ def retrieval_path(dev: torch.device, bw: float) -> list[dict]:
     return kernels
 
 
+def token_agreement(tok_a: torch.Tensor, tok_p: torch.Tensor, logits_p: list, allowed) -> tuple[int, int]:
+    """Greedy tokens of a path against the plain path's, ``tok_p[b, t] =
+    argmax(logits_p[t][b])``. Each sequence is compared step by step while
+    its history agrees; a token may differ only where the plain path's top-2
+    margin is within ``allowed(b, t)``, the logit difference the two paths
+    may have there (a near-tie), and the sequence is not compared past it.
+    Returns (tokens equal, near-ties)."""
+    equal = ties = 0
+    for b in range(tok_a.shape[0]):
+        for t in range(tok_a.shape[1]):
+            if tok_a[b, t] == tok_p[b, t]:
+                equal += 1
+                continue
+            top2 = torch.topk(logits_p[t][b].float(), 2).values
+            margin, bound = float(top2[0] - top2[1]), allowed(b, t)
+            if margin > bound:
+                raise AssertionError(f"sequence {b} step {t}: tokens {int(tok_a[b, t])} != {int(tok_p[b, t])} "
+                                     f"with the plain path's top-2 margin {margin:.4g} above {bound:.4g}")
+            ties += 1
+            break
+    return equal, ties
+
+
+@torch.no_grad()
+def lm_path(dev: torch.device, bw: float) -> list[dict]:
+    """Phase 7: TinyLlama-1.1B serving at full width and depth. Batched
+    prefill through the flash-attention kernel and greedy decode, the same
+    prefill with the kernel's plain version, the continuous-batching engine,
+    the kernel against its plain version at the served and prefill_32k
+    shapes, and the times."""
+    from torch.nn import functional as F
+
+    from repro_torch import core
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.launch.steps import LM_SHAPES
+    from repro_torch.layers.attention import gqa_project
+    from repro_torch.layers.norms import rmsnorm
+    from repro_torch.layers.rotary import apply_rope
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import Request, ServingEngine
+
+    long_seq = LM_SHAPES["prefill_32k"]["seq"]
+    cfg = get_arch(LM_ARCH).make_config()
+    t0 = time.perf_counter()
+    model = tf.TransformerLM(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"lm: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} KV heads of {cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {cfg.param_count()} "
+        f"params, {weight_bytes / 1e9:.2f} GB on the card, built in {time.perf_counter() - t0:.1f} s")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev, dtype=torch.int32)
+    max_len = LM_PROMPT + LM_NEW
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(r, rng.integers(1, cfg.vocab, size=rng.integers(ENGINE_PROMPT[0], ENGINE_PROMPT[1] + 1))
+                    .astype(np.int32), max_new_tokens=ENGINE_NEW) for r in range(ENGINE_REQUESTS)]
+
+    def plain_attention(q, k, v):
+        return flash_attention_plain(q, k, v, block_kv=cfg.block_kv)
+
+    def greedy(logits, cache, steps: int):
+        """Tokens [B, steps + 1] from the prefill logits on, the logits behind
+        each, and each decode step's wall seconds."""
+        toks, seen, lat = [], [logits], []
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        for _ in range(steps):
+            toks.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = tf.decode_step(cfg, model, tok, cache)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            seen.append(logits)
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+        return torch.cat(toks, dim=1), seen, lat
+
+    # the main path: batched prefill and greedy decode, then the engine -------
+    flash_attention_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(cfg, model, prompts, max_len)
+    torch.cuda.synchronize()
+    prefill_cold_s = time.perf_counter() - t0
+    prefill_launches = flash_attention_cuda.launches
+    toks, seen, step_s = greedy(logits, cache, LM_NEW)
+    engine = ServingEngine(cfg, model, max_batch=ENGINE_MAX_BATCH, max_len=ENGINE_MAX_LEN,
+                           hw=core.XEON_E5_2660V4)
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = engine.run_until_drained()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    launches = flash_attention_cuda.launches
+    if launches <= 0 or prefill_launches != cfg.n_layers:
+        raise AssertionError(f"the LM path launched the flash-attention kernel {launches} times "
+                             f"({prefill_launches} in the prefill of {cfg.n_layers} layers)")
+    if served != ENGINE_REQUESTS * ENGINE_NEW or not all(r.done and len(r.generated) == ENGINE_NEW for r in reqs):
+        raise AssertionError(f"the engine emitted {served} tokens")
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    plans = {str(w): engine.plans.count(w) for w in sorted(set(engine.plans))}
+    log(f"lm main path: prefill {LM_BATCH} x {LM_PROMPT} in {prefill_cold_s:.3f} s (first call), "
+        f"{LM_NEW} decode steps, engine {served} tokens for {ENGINE_REQUESTS} requests "
+        f"({prompt_tokens} prompt tokens replayed) in {engine_s:.3f} s, flash launches {launches}")
+
+    # the same prefill with the kernel's plain version, and in float32 -------
+    if not bool(torch.isfinite(logits.float()).all()) or logits.shape != (LM_BATCH, cfg.vocab):
+        raise AssertionError("prefill logits are not finite or not [B, vocab]")
+    logits_p, cache_p = tf.prefill(cfg, model, prompts, max_len, attention=plain_attention)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = tf.TransformerLM(cfg32, seed=SEED, device=dev)
+    model32.load_state_dict(model.state_dict())  # the same bf16 values, held in float32
+    logits32, cache32 = tf.prefill(cfg32, model32, prompts, LM_PROMPT, attention=plain_attention)
+    del model32
+
+    def deviation(a, ref):  # (RMS, largest) of a - ref
+        d = a.float() - ref
+        return float(d.square().mean().sqrt()), float(d.abs().max())
+
+    logit_diff = float((logits.float() - logits_p.float()).abs().max())
+    noise = {"logits": (deviation(logits, logits32), deviation(logits_p, logits32))}
+    for n in ("k", "v"):
+        if not torch.equal(cache[n][0, :, :LM_PROMPT], cache_p[n][0, :, :LM_PROMPT]):
+            raise AssertionError(f"layer 0's {n} cache differs: it precedes any attention")
+        noise[f"cache_{n}"] = (deviation(cache[n][:, :, :LM_PROMPT], cache32[n]),
+                               deviation(cache_p[n][:, :, :LM_PROMPT], cache32[n]))
+    del cache32
+    log(f"lm kernel path vs plain path: last-position logits max |diff| {logit_diff:.4g} "
+        f"(|logits| up to {float(logits_p.float().abs().max()):.3g}); (RMS, max) deviation from "
+        f"float32, kernel path then plain path: {noise}")
+    for what, ((rms_k, max_k), (rms_p, max_p)) in noise.items():
+        if rms_k > NOISE_RMS_RATIO * rms_p or max_k > NOISE_MAX_RATIO * max_p:
+            raise AssertionError(f"{what}: the kernel path strays further from float32 than the plain path")
+    toks_p, seen_p, _ = greedy(logits_p, cache_p, LM_NEW)
+    equal, ties = token_agreement(toks, toks_p, seen_p,
+                                  lambda b, t: float((seen[t][b].float() - seen_p[t][b].float()).abs().max()))
+    log(f"lm greedy tokens: {equal} of {toks.numel()} equal to the plain path's, {ties} near-ties")
+    del cache_p, seen_p
+
+    # the engine's first requests against prefill + greedy decode (plain
+    # attention); a near-tie is a top-2 margin within twice the drift of two
+    # bf16 paths measured above
+    eng_equal = eng_ties = 0
+    for r in reqs[:ENGINE_CHECKED]:
+        p = torch.from_numpy(r.prompt).to(dev)[None]
+        rl, rc = tf.prefill(cfg, model, p, p.shape[1] + ENGINE_NEW, attention=plain_attention)
+        rt, rseen, _ = greedy(rl, rc, ENGINE_NEW - 1)
+        e, t = token_agreement(torch.tensor(r.generated, device=dev)[None], rt, rseen, lambda b, t: 2 * logit_diff)
+        eng_equal, eng_ties = eng_equal + e, eng_ties + t
+    log(f"lm engine: {eng_equal} tokens of its first {ENGINE_CHECKED} requests equal prefill + decode's, "
+        f"{eng_ties} near-ties")
+
+    # the kernel against its plain version on layer 0's q/k/v ---------------
+    def layer0_qkv(tokens: torch.Tensor):
+        b, s = tokens.shape
+        layer = model.layers[0]
+        h = rmsnorm(layer.ln1, model.embed[tokens.long()], eps=cfg.norm_eps)
+        q, k, v = gqa_project(layer.attn, h)
+        pos = torch.arange(s, device=dev).expand(b, s)
+        return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
+
+    def library(q, k, v):  # the yardstick: one PyTorch call, never used by the port
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                              is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    long_tokens = torch.randint(0, cfg.vocab, (1, long_seq), generator=gen, device=dev, dtype=torch.int32)
+    flash_err, shapes = 0.0, []
+    for what, tokens, reps in (("served", prompts, {}), ("prefill_32k", long_tokens,
+                                                        dict(warmup=1, batches=3, per_batch=1))):
+        q, k, v = layer0_qkv(tokens)
+        b, s, h, dh = q.shape
+        got, want = flash_attention_cuda(q, k, v), plain_attention(q, k, v)
+        torch.testing.assert_close(got, want, rtol=FLASH_BF16_RTOL, atol=FLASH_BF16_ATOL)
+        err = float((got.float() - want.float()).abs().max())
+        lib_err = float((library(q, k, v).float() - want.float()).abs().max())
+        flash_err = max(flash_err, err)
+        checks = {"bf16": err, "library_vs_plain_bf16": lib_err}
+        if what == "served":  # float32 inputs at the JAX package's tolerance
+            q32, k32, v32 = q[:2].float(), k[:2].float(), v[:2].float()
+            got32, want32 = flash_attention_cuda(q32, k32, v32), plain_attention(q32, k32, v32)
+            torch.testing.assert_close(got32, want32, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)
+            checks["float32_b2"] = float((got32 - want32).abs().max())
+            flash_err = max(flash_err, checks["float32_b2"])
+            del q32, k32, v32, got32, want32
+        del got, want
+        log(f"flash {what} B={b} S={s}: kernel vs plain max |diff| {checks}")
+        n_ops = 2 * dh * s * (s + 1) * b * h
+        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound_ms(n_bytes, n_ops, bw, BF16_TENSOR_OPS_PER_S)
+        shapes.append({
+            "shape": f"{what}: B={b} S={s} H={h} K={k.shape[2]} Dh={dh} bf16",
+            "ms": time_ms(lambda: flash_attention_cuda(q, k, v), **reps),
+            "plain_ms": time_ms(lambda: plain_attention(q, k, v),
+                                **(reps or dict(batches=5, per_batch=4))),
+            "library_ms": time_ms(lambda: library(q, k, v), **reps),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_f32_cuda_cores": bound_ms(n_bytes, n_ops, bw)[0],
+            "flop": n_ops, "bytes": n_bytes, "max_abs_err": checks,
+        })
+        log(json.dumps({"flash_attention_times": shapes[-1]}))
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    # end-to-end times: a warm prefill, the decode steps, and a profiled prefill
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tf.prefill(cfg, model, prompts, max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    by_name, pwall = device_time_by_kernel(lambda: tf.prefill(cfg, model, prompts, max_len))
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    flash_busy = sum(v for k_, v in by_name.items() if "flash_attention_kernel" in k_)
+    # one decode step at the same shapes (the cache is full: the step reads
+    # every entry and its write is dropped, as at the reference's edge)
+    step_by_name, step_wall = device_time_by_kernel(lambda: tf.decode_step(cfg, model, toks[:, -1:], cache))
+    step_busy = sum(step_by_name.values())
+    log(json.dumps({"lm_path": {
+        "arch": cfg.name, "weight_bytes": weight_bytes,
+        "prefill_batch": LM_BATCH, "prompt_len": LM_PROMPT,
+        "prefill_s": prefill_s, "prefill_first_call_s": prefill_cold_s,
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+        "decode_steps": LM_NEW, "decode_step_ms_median": float(np.median(step_s)) * 1e3,
+        "decode_step_ms_all": [x * 1e3 for x in step_s],
+        "decode_tokens_per_s": LM_BATCH / float(np.median(step_s)),
+        "engine": {"requests": ENGINE_REQUESTS, "prompt_tokens": prompt_tokens, "new_tokens": served,
+                   "wall_s": engine_s, "tokens_per_s": served / engine_s,
+                   "ticks": len(engine.plans), "planned_group_width_xeon_model": plans},
+        "flash_launches": launches, "logit_max_abs_diff": logit_diff,
+        "deviation_from_float32_kernel_then_plain": noise,
+        "greedy_tokens_equal": equal, "greedy_near_ties": ties,
+    }}))
+    log(json.dumps({"lm_prefill_profile": {
+        "wall_s": pwall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / (pwall * 1e3),
+        "flash_attention_ms": flash_busy, "top_kernels_ms": {k_[:60]: v for k_, v in top},
+    }}))
+    log(json.dumps({"lm_decode_step_profile": {
+        "wall_s": step_wall, "device_busy_ms": step_busy, "device_idle_share": 1.0 - step_busy / (step_wall * 1e3),
+    }}))
+
+    main_shape = shapes[0]
+    return [{
+        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/attention/flash_attention.py:84",
+        "launches": launches, "max_abs_err": flash_err,
+        **{k_: main_shape[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                         "bound_ms_f32_cuda_cores")},
+        "at": main_shape["shape"], "shapes": shapes,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -571,6 +860,9 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (the LM path) accumulate in float32 throughout, as the
+    # reference's dots do, not in cuBLAS's reduced-precision split reductions
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.perf_counter()
 
     # 1. environment ---------------------------------------------------------
@@ -582,7 +874,7 @@ def main() -> int:
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    secs = _build.build("spmv", "degree_count", "scoring", "embedding_bag")
+    secs = _build.build("spmv", "degree_count", "scoring", "embedding_bag", "flash_attention")
     log(f"build: {time.perf_counter() - t0:.2f} s wall, per source {secs} (nvcc sm_90a)")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
@@ -598,8 +890,15 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += retrieval_path(dev, bw)
     log(f"retrieval phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()  # the retrieval tables are gone; the LM needs the room
 
-    # 7. isolation -------------------------------------------------------------
+    # 7. LM serving at full width ----------------------------------------------------
+    t0 = time.perf_counter()
+    kernels += lm_path(dev, bw)
+    log(f"lm phase: {time.perf_counter() - t0:.1f} s")
+
+    # 8. isolation -------------------------------------------------------------
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     if leaked:
         raise AssertionError(f"imported the JAX side: {leaked}")

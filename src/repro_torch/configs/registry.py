@@ -6,6 +6,9 @@ from __future__ import annotations
 from importlib import import_module
 
 _MODULES = {
+    "granite-34b": "granite_34b",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "stablelm-1.6b": "stablelm_1_6b",
     "two-tower-retrieval": "two_tower_retrieval",
 }
 

@@ -6,4 +6,6 @@
 #   spmv          — PR-pull aggregation / BFS expansion (ragged dst tiles)
 #   scoring       — two-tower candidate scoring (tiled float32 SGEMM)
 #   embedding_bag — gather, weight and sum per bag (one warp per bag)
-from . import degree_count, embedding_bag, scoring, spmv
+#   attention     — causal flash attention with grouped KV heads (float32
+#                   online softmax on the CUDA cores)
+from . import attention, degree_count, embedding_bag, scoring, spmv

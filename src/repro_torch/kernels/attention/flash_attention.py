@@ -1,0 +1,108 @@
+"""Causal flash attention (forward): the CUDA kernel's wrapper and its plain
+version.
+
+Replaces ``repro/kernels/attention/flash_attention.py::flash_attention_pallas``.
+Both functions take the layer's layout as it is, ``q [B, S, H, Dh]`` and
+``k, v [B, S, K, Dh]`` with ``H`` a multiple of ``K`` (query head ``h`` reads
+KV head ``h // (H // K)``), any ``S``, and return ``[B, S, H, Dh]`` in q's
+type: q cast to float32 and scaled by ``Dh**-0.5``, float32 scores masked to
+-1e30 above the diagonal, an online softmax with float32 m/l/acc, and
+``acc / max(l, 1e-30)``. At ``K == H`` this is ``flash_attention_pallas`` on
+the folded ``[B·H, S, Dh]`` layout. The source and its design note are
+``csrc/flash_attention.cu``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._build import check, load
+
+BLOCK_Q = 64   # query rows per CUDA block
+BLOCK_K = 64   # keys per tile of the block's loop
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)   # the head dims the kernel is built for
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MAX_Q_TILES = 65535        # the grid's second axis
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, block_kv: int = 512
+) -> torch.Tensor:
+    """Plain PyTorch version: the blocked online softmax of the reference's
+    ``blocked_causal_attention_gqa``, over KV blocks of ``block_kv`` keys,
+    never holding more than ``[B, K, G, S, block_kv]`` scores. The query
+    heads are grouped onto their KV head, so k and v are not expanded."""
+    b, s, h, dh = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    scale = dh**-0.5
+    qt = q.reshape(b, s, kh, g, dh).permute(0, 2, 3, 1, 4).float() * scale  # [B,K,G,S,Dh]
+    kt = k.permute(0, 2, 1, 3).float()                                       # [B,K,S,Dh]
+    vt = v.permute(0, 2, 1, 3).float()
+    q_pos = torch.arange(s, device=q.device)
+    m = torch.full((b, kh, g, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kh, g, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kh, g, s, dh), dtype=torch.float32, device=q.device)
+    # the reference pads the last block with masked keys; they add exp(-1e30 - m) = 0
+    for c0 in range(0, s, block_kv):
+        c1 = min(c0 + block_kv, s)
+        scores = torch.einsum("bkgsd,bktd->bkgst", qt, kt[:, :, c0:c1])
+        mask = torch.arange(c0, c1, device=q.device)[None, :] <= q_pos[:, None]
+        scores = scores.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgst,bktd->bkgsd", p, vt[:, :, c0:c1])
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]                                 # [B,K,G,S,Dh]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load("flash_attention")
+    fn = lib.flash_attention
+    if fn.argtypes is None:  # first load: declare the C signature
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        fn.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream."""
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"flash_attention_cuda: {name} must be on a CUDA device with q, got {t.device}")
+        if t.dtype not in _DTYPES or t.dtype != q.dtype:
+            raise ValueError(
+                f"flash_attention_cuda: q, k, v must share one of {list(_DTYPES)}, {name} is {t.dtype}"
+            )
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(f"flash_attention_cuda: {name} must be a contiguous 4-D tensor")
+    b, s, h, dh = q.shape
+    kh = k.shape[2]
+    if k.shape != v.shape or (k.shape[0], k.shape[1], k.shape[3]) != (b, s, dh):
+        raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} and k/v {tuple(k.shape)}/{tuple(v.shape)} disagree")
+    if kh == 0 or h % kh != 0:
+        raise ValueError(f"flash_attention_cuda: {h} query heads are no multiple of {kh} KV heads")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {dh} is not one of {HEAD_DIMS}")
+    if -(-s // BLOCK_Q) > _MAX_Q_TILES:
+        raise ValueError(f"flash_attention_cuda: at most {_MAX_Q_TILES * BLOCK_Q} positions per call")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    status = _lib().flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kh, dh,
+        _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(status, "flash_attention")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

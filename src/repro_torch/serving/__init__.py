@@ -1,1 +1,1 @@
-from .engine import DECODE_STEP, plan_group_width
+from .engine import DECODE_STEP, Request, ServingEngine, plan_group_width

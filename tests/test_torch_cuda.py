@@ -13,10 +13,12 @@ torch = pytest.importorskip("torch")
 from repro_torch import algorithms as alg  # noqa: E402
 from repro_torch import core  # noqa: E402
 from repro_torch.graph import rmat_graph  # noqa: E402
+from repro_torch.kernels.attention import flash_attention_cuda, flash_attention_plain  # noqa: E402
 from repro_torch.kernels.degree_count import degree_count_cuda, degree_count_plain  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda, embedding_bag_plain  # noqa: E402
 from repro_torch.kernels.scoring import scoring_cuda, scoring_plain  # noqa: E402
 from repro_torch.kernels.spmv import build_tiles, spmv_rows_cuda, spmv_rows_plain, spmv_tiles  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.recsys import FieldSpec, TwoTower, TwoTowerConfig  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -31,6 +33,11 @@ SPMV_RTOL, SPMV_ATOL = 1e-4, 1e-6
 # both without TF32): errors of about sqrt(D) float32 epsilons, well inside
 # the JAX package's scoring tolerance
 SCORE_RTOL = SCORE_ATOL = 1e-5
+# flash attention, float32: the JAX package's tolerance (tests/test_kernels.py)
+FLASH_TOL = 2e-5
+# bf16 outputs of the same float32 math summed in another order: the two
+# roundings to bf16 may land one step apart, so torch.testing's bf16 defaults
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1.6e-2, 1e-5
 
 
 def _unit_rows(shape, g, dev):
@@ -242,3 +249,94 @@ def test_two_tower_on_card_equals_cpu(cuda):
     v_cpu, i_cpu = cpu.score_candidates(to(users, "cpu"), corpus_cpu, top_k=16)
     torch.testing.assert_close(v_card.cpu(), v_cpu, rtol=1e-5, atol=1e-5)
     assert torch.equal(i_card.cpu(), i_cpu)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("h,kh", [(4, 4), (32, 4), (48, 1)])
+@pytest.mark.parametrize("s", [1, 64, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(cuda, dh, h, kh, s, dtype):
+    """G = H / K of 1, 8 and 48; S of one key, one whole tile and a ragged
+    fourth tile."""
+    g = torch.Generator(device=cuda).manual_seed(s * 7 + dh + h)
+    dt = getattr(torch, dtype)
+    q = torch.randn(2, s, h, dh, device=cuda, generator=g).to(dt)
+    k = torch.randn(2, s, kh, dh, device=cuda, generator=g).to(dt)
+    v = torch.randn(2, s, kh, dh, device=cuda, generator=g).to(dt)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1 and got.dtype == dt
+    want = flash_attention_plain(q, k, v, block_kv=64)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
+    else:
+        torch.testing.assert_close(got, want, rtol=FLASH_BF16_RTOL, atol=FLASH_BF16_ATOL)
+
+
+def test_flash_attention_kernel_long_sequence(cuda):
+    """Rows far past the first tiles: the online softmax's rescaling over
+    35 tiles, in float16 too."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(1, 2222, 8, 64, device=cuda, generator=g) for _ in range(3))
+    k, v = k[:, :, :2].contiguous(), v[:, :, :2].contiguous()
+    want = flash_attention_plain(q, k, v, block_kv=512)
+    torch.testing.assert_close(flash_attention_cuda(q, k, v), want, rtol=FLASH_TOL, atol=FLASH_TOL)
+    half = flash_attention_cuda(q.half(), k.half(), v.half())
+    torch.testing.assert_close(half, flash_attention_plain(q.half(), k.half(), v.half()), rtol=1e-3, atol=1e-3)
+
+
+def test_flash_attention_wrapper_raises_instead_of_falling_back(cuda):
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
+    kv = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q.cpu(), kv.cpu(), kv.cpu())
+    with pytest.raises(ValueError, match="share one of"):
+        flash_attention_cuda(q.double(), kv.double(), kv.double())
+    with pytest.raises(ValueError, match="share one of"):
+        flash_attention_cuda(q.bfloat16(), kv, kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(1, 2), kv, kv)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(q[..., :16].contiguous(), kv[..., :16].contiguous(), kv[..., :16].contiguous())
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_cuda(q[:, :, :3].contiguous(), kv, kv)
+
+
+def _card_lm():
+    cfg = tf.LMConfig(name="card", n_layers=3, d_model=128, n_heads=4, n_kv_heads=2, head_dim=64,
+                      d_ff=256, vocab=300, dtype=torch.float32, block_kv=16)
+    return cfg, tf.TransformerLM(cfg, seed=3, device="cpu")
+
+
+def test_prefill_on_card_launches_the_kernel_and_equals_cpu(cuda):
+    cfg, cpu = _card_lm()
+    card = tf.TransformerLM(cfg, seed=4, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 77)).astype(np.int32))
+    before = flash_attention_cuda.launches
+    logits, cache = tf.prefill(cfg, card, toks.to(cuda), 80)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    want, want_cache = tf.prefill(cfg, cpu, toks, 80)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(cache["k"].cpu(), want_cache["k"], rtol=1e-4, atol=1e-5)
+    # the decode path (plain torch) continues from the card's cache
+    nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+    step, cache = tf.decode_step(cfg, card, nxt, cache)
+    assert step.shape == (2, cfg.vocab) and cache["len"].tolist() == [78, 78]
+
+
+def test_serving_engine_drains_on_card(cuda):
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg, cpu = _card_lm()
+    card = tf.TransformerLM(cfg, seed=0, device=cuda)
+    eng = ServingEngine(cfg, card, max_batch=3, max_len=32, hw=core.XEON_E5_2660V4)
+    assert eng.cache["k"].device.type == "cuda" and eng.cache["k"].dtype == torch.float32
+    rng = np.random.default_rng(1)
+    reqs = [Request(r, rng.integers(1, cfg.vocab, 5).astype(np.int32), max_new_tokens=4) for r in range(4)]
+    for r in reqs:
+        eng.submit(r)
+    assert eng.run_until_drained() == 16
+    assert all(r.done and len(r.generated) == 4 for r in reqs) and all(w >= 1 for w in eng.plans)
