@@ -30,15 +30,18 @@ serving at full width and depth. For a quick check at small sizes run
 7. LM serving — with the retrieval tables freed: TinyLlama-1.1B
    (``configs/tinyllama_1_1b.py::make_config()``, bf16, random weights
    from the seed) prefills 8 prompts of 2048 tokens through the
-   flash-attention kernel (22 launches), decodes 32 greedy steps, and runs
+   tensor-core flash-attention kernel (wgmma products fed by TMA, split-P;
+   22 launches, and the profiled prefill must show it), decodes 32 greedy
+   steps, and runs
    the same prefill again with the kernel's plain version passed as the
    attention: logits and caches within bf16 tolerances, greedy tokens
    equal wherever the plain path's top-2 margin exceeds the logits'
    difference. Then ``ServingEngine`` serves 8 requests (prompts of 16–48
    tokens, 16 new tokens each) by continuous batching. The kernel is held
    against its plain version on layer 0's q/k/v at the served shape and at
-   ``prefill_32k``'s sequence (B=1, S=32768), in bf16 and float32, and
-   timed beside the plain version and ``scaled_dot_product_attention``;
+   ``prefill_32k``'s sequence (B=1, S=32768) in bf16, and at the served
+   shape with B=2 in float32 (the CUDA-core kernel), each timed beside the
+   plain version and ``scaled_dot_product_attention``;
 8. isolation — neither JAX nor the JAX package was imported.
 
 The kernels' times go out as one JSON line. The last line is
@@ -773,13 +776,14 @@ def lm_path(dev: torch.device, bw: float) -> list[dict]:
         lib_err = float((library(q, k, v).float() - want.float()).abs().max())
         flash_err = max(flash_err, err)
         checks = {"bf16": err, "library_vs_plain_bf16": lib_err}
-        if what == "served":  # float32 inputs at the JAX package's tolerance
-            q32, k32, v32 = q[:2].float(), k[:2].float(), v[:2].float()
-            got32, want32 = flash_attention_cuda(q32, k32, v32), plain_attention(q32, k32, v32)
+        f32 = None
+        if what == "served":  # float32 inputs (the CUDA-core kernel) at the JAX package's tolerance
+            f32 = q[:2].float(), k[:2].float(), v[:2].float()
+            got32, want32 = flash_attention_cuda(*f32), plain_attention(*f32)
             torch.testing.assert_close(got32, want32, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)
             checks["float32_b2"] = float((got32 - want32).abs().max())
             flash_err = max(flash_err, checks["float32_b2"])
-            del q32, k32, v32, got32, want32
+            del got32, want32
         del got, want
         log(f"flash {what} B={b} S={s}: kernel vs plain max |diff| {checks}")
         n_ops = 2 * dh * s * (s + 1) * b * h
@@ -796,7 +800,20 @@ def lm_path(dev: torch.device, bw: float) -> list[dict]:
             "flop": n_ops, "bytes": n_bytes, "max_abs_err": checks,
         })
         log(json.dumps({"flash_attention_times": shapes[-1]}))
-        del q, k, v
+        if f32 is not None:  # the float32 path, bound at the CUDA cores' float32 rate
+            n_ops32 = 2 * dh * s * (s + 1) * 2 * h
+            n_bytes32 = 4 * (2 * f32[0].numel() + f32[1].numel() + f32[2].numel())
+            b32_ms, b32_by = bound_ms(n_bytes32, n_ops32, bw)
+            shapes.append({
+                "shape": f"{what} float32: B=2 S={s} H={h} K={k.shape[2]} Dh={dh} float32",
+                "ms": time_ms(lambda: flash_attention_cuda(*f32)),
+                "plain_ms": time_ms(lambda: plain_attention(*f32), batches=5, per_batch=4),
+                "library_ms": time_ms(lambda: library(*f32)),
+                "bound_ms": b32_ms, "bound_by": b32_by,
+                "flop": n_ops32, "bytes": n_bytes32, "max_abs_err": checks["float32_b2"],
+            })
+            log(json.dumps({"flash_attention_times": shapes[-1]}))
+        del q, k, v, f32
     torch.cuda.empty_cache()
 
     # end-to-end times: a warm prefill, the decode steps, and a profiled prefill
@@ -808,7 +825,9 @@ def lm_path(dev: torch.device, bw: float) -> list[dict]:
     by_name, pwall = device_time_by_kernel(lambda: tf.prefill(cfg, model, prompts, max_len))
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    flash_busy = sum(v for k_, v in by_name.items() if "flash_attention_kernel" in k_)
+    flash_busy = sum(v for k_, v in by_name.items() if "flash_attention" in k_)
+    if not any("flash_attention_wgmma_kernel" in k_ for k_ in by_name):
+        raise AssertionError("the profiled bf16 prefill ran no tensor-core flash kernel")
     # one decode step at the same shapes (the cache is full: the step reads
     # every entry and its write is dropped, as at the reference's edge)
     step_by_name, step_wall = device_time_by_kernel(lambda: tf.decode_step(cfg, model, toks[:, -1:], cache))
@@ -838,7 +857,8 @@ def lm_path(dev: torch.device, bw: float) -> list[dict]:
 
     main_shape = shapes[0]
     return [{
-        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "name": "flash_attention", "design": "wgmma+tma, split-P", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention/flash_attention.py:84",
         "launches": launches, "max_abs_err": flash_err,
         **{k_: main_shape[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -878,8 +898,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s wall, per source {secs} (nvcc sm_90a)")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "registers" in line or "spill" in line or "entry function" in line:
+                log(f"  {name}: {line.strip()[:200]}")
 
     # 3-5. the graph engine: kernels, main path, timing -----------------------
     kernels = graph_path(dev, bw)

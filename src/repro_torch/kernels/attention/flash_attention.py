@@ -1,14 +1,24 @@
-"""Causal flash attention (forward): the CUDA kernel's wrapper and its plain
+"""Causal flash attention (forward): the CUDA kernels' wrapper and their plain
 version.
 
 Replaces ``repro/kernels/attention/flash_attention.py::flash_attention_pallas``.
 Both functions take the layer's layout as it is, ``q [B, S, H, Dh]`` and
 ``k, v [B, S, K, Dh]`` with ``H`` a multiple of ``K`` (query head ``h`` reads
 KV head ``h // (H // K)``), any ``S``, and return ``[B, S, H, Dh]`` in q's
-type: q cast to float32 and scaled by ``Dh**-0.5``, float32 scores masked to
--1e30 above the diagonal, an online softmax with float32 m/l/acc, and
-``acc / max(l, 1e-30)``. At ``K == H`` this is ``flash_attention_pallas`` on
-the folded ``[B·H, S, Dh]`` layout. The source and its design note are
+type: float32 scores ``q·kᵀ·Dh**-0.5`` masked to -1e30 above the diagonal, an
+online softmax with float32 m/l/acc, and ``acc / max(l, 1e-30)``. At
+``K == H`` this is ``flash_attention_pallas`` on the folded ``[B·H, S, Dh]``
+layout.
+
+bf16 and fp16 inputs go to the tensor-core kernel: ``wgmma`` products fed by
+TMA, 128 query rows per block, ``BLOCK_K[Dh]`` keys per tile, the scale
+applied to the float32 scores after the product, and P·V taken as two
+16-bit products (``P_hi = 16-bit(p)``, ``P_lo = 16-bit(p - P_hi)``) into one
+float32 accumulator, so P keeps ~16 bits where one 16-bit rounding would move
+outputs past a bf16 step. TMA needs each input to start on a 16-byte
+boundary: a view that does not raises a ``ValueError`` here rather than being
+copied. float32 inputs go to a CUDA-core kernel of ``F32_BLOCK_Q`` rows and
+``F32_BLOCK_K``-key tiles. The source and its design note are
 ``csrc/flash_attention.cu``.
 """
 from __future__ import annotations
@@ -19,10 +29,12 @@ import torch
 
 from .._build import check, load
 
-BLOCK_Q = 64   # query rows per CUDA block
-BLOCK_K = 64   # keys per tile of the block's loop
+BLOCK_Q = 128                          # bf16/fp16 kernel: query rows per CUDA block
+BLOCK_K = {32: 128, 64: 128, 128: 64}  # its keys per tile, by head dim
+F32_BLOCK_Q = 64                       # float32 kernel: query rows per block
+F32_BLOCK_K = 64                       # its keys per tile
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)   # the head dims the kernel is built for
+HEAD_DIMS = (32, 64, 128)   # the head dims the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_Q_TILES = 65535        # the grid's second axis
 
@@ -72,7 +84,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream."""
+    """Launch the CUDA kernel for q's type on the current stream."""
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != dev:
@@ -91,8 +103,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
         raise ValueError(f"flash_attention_cuda: {h} query heads are no multiple of {kh} KV heads")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim {dh} is not one of {HEAD_DIMS}")
-    if -(-s // BLOCK_Q) > _MAX_Q_TILES:
-        raise ValueError(f"flash_attention_cuda: at most {_MAX_Q_TILES * BLOCK_Q} positions per call")
+    rows = F32_BLOCK_Q if q.dtype == torch.float32 else BLOCK_Q
+    if -(-s // rows) > _MAX_Q_TILES:
+        raise ValueError(f"flash_attention_cuda: at most {_MAX_Q_TILES * rows} positions per call")
+    if q.dtype != torch.float32:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention_cuda: {name} must start on a 16-byte boundary (TMA)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -21,7 +21,8 @@ from repro.layers import mlp as jmlp  # noqa: E402
 from repro.layers import norms as jnorms  # noqa: E402
 from repro.layers import rotary as jrot  # noqa: E402
 from repro_torch.kernels.attention import (  # noqa: E402
-    BLOCK_Q,
+    BLOCK_K,
+    F32_BLOCK_Q,
     attention_ref,
     flash_attention,
     flash_attention_cuda,
@@ -74,7 +75,7 @@ def test_flash_bshd_entry_matches_jax():
     _close(got, want)
 
 
-@pytest.mark.parametrize("s", [1, 37, BLOCK_Q + 1, 200])
+@pytest.mark.parametrize("s", [1, 37, F32_BLOCK_Q + 1, 200])
 @pytest.mark.parametrize("block_kv", [16, 64, 512])
 def test_flash_plain_any_length(s, block_kv):
     """S no multiple of any tile: the plain version against the unblocked
@@ -135,11 +136,94 @@ def test_flash_cpu_tensors_take_the_plain_version_only():
 
 
 def test_kernel_tile_constants_match_the_source():
+    """The wrapper's tile constants and head dims are the ones both kernels
+    are built with: the tensor-core kernel's rows per block and keys per tile
+    by head dim, and the float32 kernel's."""
     text = (Path(flash_module.__file__).parents[2] / "csrc" / "flash_attention.cu").read_text()
     assert f"constexpr int kBQ = {flash_module.BLOCK_Q};" in text
-    assert f"constexpr int kBK = {flash_module.BLOCK_K};" in text
+    assert f"constexpr int kF32BQ = {flash_module.F32_BLOCK_Q};" in text
+    assert f"constexpr int kF32BK = {flash_module.F32_BLOCK_K};" in text
+    assert set(flash_module.BLOCK_K) == set(flash_module.HEAD_DIMS)
     for dh in flash_module.HEAD_DIMS:
-        assert f"case {dh}: return launch<T, {dh}>" in text
+        assert f"case {dh}: return launch_wgmma<T, {dh}, {flash_module.BLOCK_K[dh]}>" in text
+        assert f"case {dh}: return launch_f32<{dh}>" in text
+
+
+# ---------------- the tensor-core kernel's numerics, emulated ----------------
+
+# the card tests' tolerances (tests/test_torch_cuda.py): bf16 outputs of the
+# same float32 math at most one bf16 rounding step apart; fp16 as the
+# long-sequence test holds it
+CARD_BF16_RTOL, CARD_BF16_ATOL = 1.6e-2, 1e-5
+CARD_F16_TOL = 1e-3
+
+
+def _split_p_flash(q, k, v, block_k, split=True):
+    """The tensor-core kernel's arithmetic in float32 on the CPU: tiles of
+    ``block_k`` keys, the scale applied to the float32 scores after the
+    product, and P·V as P_hi·V + P_lo·V with ``P_hi = 16-bit(p)`` and
+    ``P_lo = 16-bit(p - P_hi)`` in q's type (``split=False``: P_hi alone); l
+    is summed from the float32 p."""
+    low = q.dtype
+    b, s, h, dh = q.shape
+    kh = k.shape[2]
+    qt = q.reshape(b, s, kh, h // kh, dh).permute(0, 2, 3, 1, 4).float()
+    kt, vt = k.permute(0, 2, 1, 3).float(), v.permute(0, 2, 1, 3).float()
+    pos = torch.arange(s)
+    m = torch.full(qt.shape[:-1], -1e30)
+    l = torch.zeros(qt.shape[:-1])
+    acc = torch.zeros(qt.shape)
+    for c0 in range(0, s, block_k):
+        c1 = min(c0 + block_k, s)
+        scores = torch.einsum("bkgsd,bktd->bkgst", qt, kt[:, :, c0:c1]) * dh**-0.5
+        scores = scores.masked_fill(torch.arange(c0, c1)[None, :] > pos[:, None], -1e30)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        p_hi = p.to(low).float()
+        pv = torch.einsum("bkgst,bktd->bkgsd", p_hi, vt[:, :, c0:c1])
+        if split:
+            p_lo = (p - p_hi).to(low).float()
+            pv = pv + torch.einsum("bkgst,bktd->bkgsd", p_lo, vt[:, :, c0:c1])
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(low)
+
+
+def _qkv16(seed, s, h, kh, dh, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(_np(rng, 2, s, n, dh)).to(dtype) for n in (h, kh, kh)]
+
+
+def _card_close(got, want):
+    if got.dtype == torch.bfloat16:
+        torch.testing.assert_close(got, want, rtol=CARD_BF16_RTOL, atol=CARD_BF16_ATOL)
+    else:
+        torch.testing.assert_close(got, want, rtol=CARD_F16_TOL, atol=CARD_F16_TOL)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("s", [129, 600])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_split_p_numerics_meet_the_card_tolerance(dh, g, s, dtype):
+    """Split-P with l from float32 p, at the kernel's own tile width, holds
+    the plain version at the card tests' unchanged tolerances."""
+    q, k, v = _qkv16(s + dh + g, s, 2 * g, 2, dh, getattr(torch, dtype))
+    want = flash_attention_plain(q, k, v, block_kv=64)
+    _card_close(_split_p_flash(q, k, v, BLOCK_K[dh]), want)
+
+
+def test_unsplit_p_misses_the_bf16_tolerance():
+    """Why the kernel splits P: P rounded to bf16 alone moves outputs past a
+    bf16 step of the float32 reference."""
+    q, k, v = _qkv16(600 + 64 + 8, 600, 16, 2, 64, torch.bfloat16)
+    want = flash_attention_plain(q, k, v, block_kv=64).float()
+    got = _split_p_flash(q, k, v, BLOCK_K[64], split=False).float()
+    outside = (got - want).abs() > CARD_BF16_ATOL + CARD_BF16_RTOL * want.abs()
+    assert outside.float().mean() > 0.01
 
 
 # ---------------- layers/attention.py ----------------

@@ -38,6 +38,9 @@ FLASH_TOL = 2e-5
 # bf16 outputs of the same float32 math summed in another order: the two
 # roundings to bf16 may land one step apart, so torch.testing's bf16 defaults
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1.6e-2, 1e-5
+# fp16 outputs likewise: one fp16 step (2**-10 relative), as the
+# long-sequence test has held them
+FLASH_F16_TOL = 1e-3
 
 
 def _unit_rows(shape, g, dev):
@@ -253,11 +256,12 @@ def test_two_tower_on_card_equals_cpu(cuda):
 
 @pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("h,kh", [(4, 4), (32, 4), (48, 1)])
-@pytest.mark.parametrize("s", [1, 64, 200])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 64, 127, 128, 129, 200, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_kernel_matches_plain(cuda, dh, h, kh, s, dtype):
-    """G = H / K of 1, 8 and 48; S of one key, one whole tile and a ragged
-    fourth tile."""
+    """G = H / K of 1, 8 and 48; S of one key, one float32 tile, a ragged
+    128-row block, exactly one, the first row past it, a ragged fourth
+    float32 tile, and many tiles."""
     g = torch.Generator(device=cuda).manual_seed(s * 7 + dh + h)
     dt = getattr(torch, dtype)
     q = torch.randn(2, s, h, dh, device=cuda, generator=g).to(dt)
@@ -270,8 +274,10 @@ def test_flash_attention_kernel_matches_plain(cuda, dh, h, kh, s, dtype):
     want = flash_attention_plain(q, k, v, block_kv=64)
     if dtype == "float32":
         torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
-    else:
+    elif dtype == "bfloat16":
         torch.testing.assert_close(got, want, rtol=FLASH_BF16_RTOL, atol=FLASH_BF16_ATOL)
+    else:
+        torch.testing.assert_close(got, want, rtol=FLASH_F16_TOL, atol=FLASH_F16_TOL)
 
 
 def test_flash_attention_kernel_long_sequence(cuda):
@@ -283,7 +289,8 @@ def test_flash_attention_kernel_long_sequence(cuda):
     want = flash_attention_plain(q, k, v, block_kv=512)
     torch.testing.assert_close(flash_attention_cuda(q, k, v), want, rtol=FLASH_TOL, atol=FLASH_TOL)
     half = flash_attention_cuda(q.half(), k.half(), v.half())
-    torch.testing.assert_close(half, flash_attention_plain(q.half(), k.half(), v.half()), rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(half, flash_attention_plain(q.half(), k.half(), v.half()),
+                               rtol=FLASH_F16_TOL, atol=FLASH_F16_TOL)
 
 
 def test_flash_attention_wrapper_raises_instead_of_falling_back(cuda):
@@ -301,6 +308,10 @@ def test_flash_attention_wrapper_raises_instead_of_falling_back(cuda):
         flash_attention_cuda(q[..., :16].contiguous(), kv[..., :16].contiguous(), kv[..., :16].contiguous())
     with pytest.raises(ValueError, match="multiple"):
         flash_attention_cuda(q[:, :, :3].contiguous(), kv, kv)
+    # a contiguous bf16 view 2 bytes past a 16-byte boundary: TMA cannot read it
+    flat = torch.zeros(1 + q.numel(), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(flat[1:].view(q.shape), kv.bfloat16(), kv.bfloat16())
 
 
 def _card_lm():
