@@ -24,9 +24,11 @@ serving at full width and depth. For a quick check at small sizes run
 6. retrieval server — with the RMAT graph freed: a 2^20-candidate corpus
    through the item tower, then 8 requests at each of batch 1, 4, 64 and
    512 (user tower, then ``score_topk`` with k=128), every result held
-   against plain PyTorch on the card, both kernels' launch counts > 0, the
-   planned group widths, wall latencies, a profile of one round, and both
-   kernels' times at the server's shapes;
+   against plain PyTorch on the card, both kernels' launch counts > 0 and
+   both scoring kernels' (the CUDA-core stream at batch 1 and 4, the
+   3xTF32 tensor-core kernel at 64 and 512), the planned group widths, wall
+   latencies, a profile of one round, and the kernels' times at the
+   server's shapes (scoring also at batch 16);
 7. LM serving — with the retrieval tables freed: TinyLlama-1.1B
    (``configs/tinyllama_1_1b.py::make_config()``, bf16, random weights
    from the seed) prefills 8 prompts of 2048 tokens through the
@@ -82,6 +84,7 @@ PR_RTOL, PR_ATOL = 2e-4, 1e-8  # the JAX package's PageRank tolerance
 N_ITEMS = 1_048_576
 CORPUS_CHUNK = 65_536
 BATCHES = (1, 4, 64, 512)  # retrieval_cand, the example's 4 and 64, serve_p99
+SCORING_TIMED = (1, 4, 16, 64, 512)  # the server's batches and 16
 REQUESTS = 8               # per batch size
 TOP_K = 128
 # the example's (batch, queue_depth) pairs, then retrieval_cand's and serve_p99's
@@ -114,10 +117,15 @@ NOISE_RMS_RATIO, NOISE_MAX_RATIO = 1.25, 1.5
 TIMED_BATCHES, TIMED_PER_BATCH = 5, 20
 # published H100 peaks (NVIDIA data sheets): HBM bytes/s by part, the
 # float32/int32 CUDA-core rate for the adds these kernels do, and the dense
-# bf16 tensor-core rate
+# bf16 and TF32 tensor-core rates
 HBM_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 CUDA_CORE_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
+TF32_TENSOR_OPS_PER_S = 495e12
+# float32-exact products: the CUDA cores' FMAs, or the tensor cores on the
+# 3xTF32 split (three TF32 products per float32 product, which hold 1e-5),
+# whichever is faster
+F32_EXACT_OPS_PER_S = max(CUDA_CORE_OPS_PER_S, TF32_TENSOR_OPS_PER_S / 3)
 
 
 def log(msg: str) -> None:
@@ -405,6 +413,7 @@ def retrieval_path(dev: torch.device, bw: float) -> list[dict]:
     from repro_torch.configs import get_arch
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda, embedding_bag_plain
     from repro_torch.kernels.scoring import score_topk, scoring_cuda, scoring_plain
+    from repro_torch.kernels.scoring.scoring import _scoring_path
     from repro_torch.launch.steps import RECSYS_SHAPES
     from repro_torch.models.recsys import TwoTower
     from repro_torch.serving import plan_group_width
@@ -462,6 +471,7 @@ def retrieval_path(dev: torch.device, bw: float) -> list[dict]:
 
     # the main path: corpus, then the requests ------------------------------------
     scoring_cuda.launches = 0
+    scoring_cuda.launches_by_path = {"stream": 0, "tc": 0}
     embedding_bag_cuda.launches = 0
     t0 = time.perf_counter()
     corpus = torch.empty(N_ITEMS, d, device=dev)
@@ -481,11 +491,12 @@ def retrieval_path(dev: torch.device, bw: float) -> list[dict]:
             lat[b].append(time.perf_counter() - t0)
             answers[b, r] = (u, vals, idx)
     launches = {"scoring": scoring_cuda.launches, "embedding_bag": embedding_bag_cuda.launches}
-    for name, n in launches.items():
+    by_path = dict(scoring_cuda.launches_by_path)
+    for name, n in {**launches, **{f"scoring ({p})": n for p, n in by_path.items()}}.items():
         if n <= 0:
             raise AssertionError(f"the retrieval server never launched the {name} kernel")
     log(f"retrieval main path: corpus {N_ITEMS} x {d} in {corpus_s:.3f} s, "
-        f"{sum(map(len, lat.values()))} requests, launches {launches}")
+        f"{sum(map(len, lat.values()))} requests, launches {launches}, scoring by path {by_path}")
 
     # every result against plain PyTorch on the card ---------------------------
     chunk = {k: v[:CORPUS_CHUNK] for k, v in item_feats.items()}
@@ -518,7 +529,7 @@ def retrieval_path(dev: torch.device, bw: float) -> list[dict]:
         "latency_ms_all": {str(b): [x * 1e3 for x in lat[b]] for b in BATCHES},
         "requests_per_s": {str(b): 1.0 / med[b] for b in BATCHES},
         "queries_per_s": {str(b): b / med[b] for b in BATCHES},
-        "launches": launches, "topk_index_swaps": swapped,
+        "launches": launches, "scoring_launches_by_path": by_path, "topk_index_swaps": swapped,
         "planned_group_width_xeon_model": plan,
     }}))
 
@@ -535,27 +546,32 @@ def retrieval_path(dev: torch.device, bw: float) -> list[dict]:
         "top_kernels_ms": {k[:60]: v for k, v in top},
     }}))
 
-    # kernel times at the server's shapes -----------------------------------------
+    # kernel times at the server's shapes, and at B = 16
     score_err, score_shapes = 0.0, []
-    for b in (1, 64, 512):
-        q = answers[b, 0][0]
+    for b in SCORING_TIMED:
+        q = answers[b, 0][0] if b in BATCHES else answers[64, 0][0][:b].contiguous()
         got, want = scoring_cuda(q, corpus), scoring_plain(q, corpus)
         torch.testing.assert_close(got, want, rtol=SCORE_RTOL, atol=SCORE_ATOL)
-        score_err = max(score_err, float((got - want).abs().max()))
+        err = float((got - want).abs().max())
+        score_err = max(score_err, err)
         del got, want
-        b_ms, b_by = bound_ms(4 * (b * d + N_ITEMS * d + b * N_ITEMS), 2 * b * N_ITEMS * d, bw)
+        n_ops = 2 * b * N_ITEMS * d
+        n_bytes = 4 * (b * d + N_ITEMS * d + b * N_ITEMS)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, bw, F32_EXACT_OPS_PER_S)
         score_shapes.append({
-            "shape": f"B={b} N={N_ITEMS} D={d}",
+            "shape": f"B={b} N={N_ITEMS} D={d}", "path": _scoring_path(b, d),
             "ms": time_ms(lambda: scoring_cuda(q, corpus)),
             "plain_ms": time_ms(lambda: scoring_plain(q, corpus)),
             "library_ms": time_ms(lambda: torch.matmul(q, corpus.T)),
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "flop": n_ops, "bytes": n_bytes, "max_abs_err": err,
         })
+        log(json.dumps({"scoring_times": score_shapes[-1]}))
     main_shape = score_shapes[-1]  # serve_p99: the most device time per request
     kernels = [{
-        "name": "scoring", "route": "cuda", "source": "src/repro_torch/csrc/scoring.cu",
+        "name": "scoring", "design": "stream (CUDA cores) / tc (3xTF32 wgmma + TMA)", "route": "cuda",
+        "source": "src/repro_torch/csrc/scoring.cu",
         "replaces": "src/repro/kernels/scoring/scoring.py:41",
-        "launches": launches["scoring"], "max_abs_err": score_err,
+        "launches": launches["scoring"], "launches_by_path": by_path, "max_abs_err": score_err,
         **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "at": main_shape["shape"], "shapes": score_shapes,
     }]
@@ -898,7 +914,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s wall, per source {secs} (nvcc sm_90a)")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "entry function" in line:
+            if any(k in line for k in ("registers", "spill", "entry function", "C75", "warning")):
                 log(f"  {name}: {line.strip()[:200]}")
 
     # 3-5. the graph engine: kernels, main path, timing -----------------------

@@ -17,6 +17,12 @@ from repro_torch.kernels.attention import flash_attention_cuda, flash_attention_
 from repro_torch.kernels.degree_count import degree_count_cuda, degree_count_plain  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda, embedding_bag_plain  # noqa: E402
 from repro_torch.kernels.scoring import scoring_cuda, scoring_plain  # noqa: E402
+from repro_torch.kernels.scoring.scoring import (  # noqa: E402
+    STREAM_MAX_BATCH,
+    _lib,
+    _scoring_path,
+    _scoring_variant,
+)
 from repro_torch.kernels.spmv import build_tiles, spmv_rows_cuda, spmv_rows_plain, spmv_tiles  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.recsys import FieldSpec, TwoTower, TwoTowerConfig  # noqa: E402
@@ -29,9 +35,10 @@ pytestmark = pytest.mark.cuda
 # for the ~21k-edge hub row below, so 1e-4 (as in chip_smoke.py)
 SPMV_RTOL, SPMV_ATOL = 1e-4, 1e-6
 # float32 dot products of D <= 256 terms of unit-norm rows (as the towers
-# emit them) summed in another order (FMA tiles vs the library's product,
-# both without TF32): errors of about sqrt(D) float32 epsilons, well inside
-# the JAX package's scoring tolerance
+# emit them) summed in another order (exact FMAs, or the 3xTF32 split whose
+# dropped terms cost ~2^-22 of |a||b| each, vs the library's float32
+# product without TF32): errors of a few float32 epsilons times sqrt(D),
+# well inside the JAX package's scoring tolerance
 SCORE_RTOL = SCORE_ATOL = 1e-5
 # flash attention, float32: the JAX package's tolerance (tests/test_kernels.py)
 FLASH_TOL = 2e-5
@@ -157,16 +164,22 @@ def test_cuda_backend_mixed_sessions(cuda):
     assert [r.traces for r in rep.records] == [r.traces for r in mrep.records]
 
 
-@pytest.mark.parametrize("b", [1, 5, 64])
+@pytest.mark.parametrize("b", [1, 4, 5, 16, 17, 63, 64, 70, 512])
 @pytest.mark.parametrize("n,d", [(2048, 16), (6144, 256), (2048, 256), (6144, 16)])
 def test_scoring_kernel_matches_plain(cuda, b, n, d):
+    """Both kernels, across the dispatch threshold (4 | 5) and the
+    streaming kernel's old one (16 | 17), a ragged tile (70), each counted on
+    the path the rule names."""
     g = torch.Generator(device=cuda).manual_seed(b * 7 + n + d)
     q = _unit_rows((b, d), g, cuda)
     c = _unit_rows((n, d), g, cuda)
-    before = scoring_cuda.launches
+    path = _scoring_path(b, d)
+    before, by_path = scoring_cuda.launches, dict(scoring_cuda.launches_by_path)
     got = scoring_cuda(q, c)
     assert scoring_cuda.launches == before + 1
+    assert scoring_cuda.launches_by_path[path] == by_path[path] + 1
     torch.testing.assert_close(got, scoring_plain(q, c), rtol=SCORE_RTOL, atol=SCORE_ATOL)
+    assert torch.equal(got, scoring_cuda(q, c))  # fixed summation order: bit-repeatable
 
 
 def test_scoring_kernel_masks_ragged_depth_and_batch(cuda):
@@ -174,6 +187,61 @@ def test_scoring_kernel_masks_ragged_depth_and_batch(cuda):
     q = _unit_rows((70, 37), g, cuda)  # 70 queries: a second, ragged query tile
     c = _unit_rows((4096, 37), g, cuda)
     torch.testing.assert_close(scoring_cuda(q, c), scoring_plain(q, c), rtol=SCORE_RTOL, atol=SCORE_ATOL)
+
+
+def test_scoring_stream_kernel_takes_large_batches_of_ragged_depth(cuda):
+    """D % 4 != 0 keeps even B = 512 on the streaming kernel: 32 chunks of
+    16 queries, scalar loads."""
+    g = torch.Generator(device=cuda).manual_seed(37)
+    q = _unit_rows((512, 37), g, cuda)
+    c = _unit_rows((4096, 37), g, cuda)
+    before = scoring_cuda.launches_by_path["stream"]
+    torch.testing.assert_close(scoring_cuda(q, c), scoring_plain(q, c), rtol=SCORE_RTOL, atol=SCORE_ATOL)
+    assert scoring_cuda.launches_by_path["stream"] == before + 1
+
+
+@pytest.mark.parametrize("b", [4, 512])
+def test_scoring_split_keeps_relative_error_on_large_rows(cuda, b):
+    """Non-negative unit rows scaled by 10^3: scores ~6e5 without
+    cancellation, held by the tolerance's relative part, which one TF32
+    product (2^-11) misses and the 3xTF32 split meets."""
+    g = torch.Generator(device=cuda).manual_seed(b)
+    q = _unit_rows((b, 256), g, cuda).abs() * 1e3
+    c = _unit_rows((4096, 256), g, cuda).abs() * 1e3
+    torch.testing.assert_close(scoring_cuda(q, c), scoring_plain(q, c), rtol=SCORE_RTOL, atol=SCORE_ATOL)
+
+
+SCORING_VARIANTS = [("stream", w) for w in (1, 2, 4, 8, 16)] + [("tc", w) for w in (8, 16, 32, 64, 128)]
+
+
+@pytest.mark.parametrize("path,width", SCORING_VARIANTS)
+@pytest.mark.parametrize("b,d", [(3, 256), (37, 36), (300, 260)])
+def test_scoring_variants_match_plain(cuda, path, width, b, d):
+    """Every instantiation of both kernels, narrower and wider than B."""
+    g = torch.Generator(device=cuda).manual_seed(width + b + d)
+    q = _unit_rows((b, d), g, cuda)
+    c = _unit_rows((4096, d), g, cuda)
+    before = scoring_cuda.launches_by_path[path]
+    got = _scoring_variant(q, c, path, width)
+    assert scoring_cuda.launches_by_path[path] == before + 1
+    torch.testing.assert_close(got, scoring_plain(q, c), rtol=SCORE_RTOL, atol=SCORE_ATOL)
+
+
+def test_scoring_stream_kernel_takes_misaligned_rows(cuda):
+    """Candidates off a 16-byte boundary: the streaming kernel loads them
+    one float at a time; the tensor-core kernel refuses them (TMA)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    flat = torch.empty(2048 * 64 + 1, device=cuda)
+    c = flat[1:].view(2048, 64)
+    c.copy_(_unit_rows((2048, 64), g, cuda))
+    q = _unit_rows((STREAM_MAX_BATCH, 64), g, cuda)
+    torch.testing.assert_close(scoring_cuda(q, c), scoring_plain(q, c), rtol=SCORE_RTOL, atol=SCORE_ATOL)
+    with pytest.raises(ValueError, match="16-byte"):
+        scoring_cuda(_unit_rows((64, 64), g, cuda), c)
+
+
+def test_scoring_dispatch_rule_matches_the_source(cuda):
+    assert _lib().scoring_stream_max_batch() == STREAM_MAX_BATCH
 
 
 @pytest.mark.parametrize("d", [256, 16, 6])

@@ -1,7 +1,11 @@
 """The port's scoring and EmbeddingBag kernels (plain versions, on the CPU)
 against the JAX package's Pallas kernels in interpret mode, on the same
-inputs. The CUDA kernels are held against these plain versions in
+inputs, and the tensor-core scoring kernel's 3xTF32 arithmetic emulated in
+numpy. The CUDA kernels are held against these plain versions in
 test_torch_cuda.py."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -25,6 +29,7 @@ from repro_torch.kernels.scoring import (  # noqa: E402
     scoring_ref,
     topk_ref,
 )
+from repro_torch.kernels.scoring.scoring import STREAM_MAX_BATCH, _scoring_path  # noqa: E402
 
 # the JAX package's tolerances (tests/test_kernels.py): scoring 1e-5; a sum
 # of weighted rows 1e-4 / 1e-5, plain sums 1e-5
@@ -91,6 +96,79 @@ def test_scoring_cuda_raises_on_cpu_tensors():
     q, c = _qc(2, 2048, 8, 2)
     with pytest.raises(ValueError, match="must be on"):
         scoring_cuda(torch.from_numpy(q), torch.from_numpy(c))
+
+
+# ---- the tensor-core kernel's arithmetic (csrc/scoring.cu, scoring_tc_kernel) ----
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: round to 10 mantissa bits, to nearest, ties
+    away from zero (add half of the dropped part to the bit pattern, then
+    clear the low 13 bits)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32((x - hi).astype(np.float32))
+
+
+def _exact(a, b):  # products of tf32 values are exact in float32; sum in float64
+    return a.astype(np.float64) @ b.astype(np.float64).T
+
+
+def _scores_3xtf32(q, c):
+    """scores = (C_hi·Q_hi + C_hi·Q_lo + C_lo·Q_hi)ᵀ, candidates as A and
+    queries as B, as the kernel issues its three products."""
+    (qh, ql), (ch, cl) = _split(q), _split(c)
+    return (_exact(ch, qh) + _exact(ch, ql) + _exact(cl, qh)).T.astype(np.float32)
+
+
+def _unit_rows(rng, n, d, scaled):
+    x = rng.normal(size=(n, d))
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    # scaled: non-negative rows times 10^3, scores ~6e5 without cancellation,
+    # so the tolerance's relative part is what holds them
+    return (np.abs(x) * 1e3 if scaled else x).astype(np.float32)
+
+
+def _tc_case(scaled):
+    rng = np.random.default_rng(15)
+    q, c = _unit_rows(rng, 64, 256, scaled), _unit_rows(rng, 2048, 256, scaled)
+    want = np.asarray(scoring_pallas(jnp.asarray(q), jnp.asarray(c), interpret=True))
+    return q, c, want
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["unit", "scaled_1e3"])
+def test_3xtf32_split_matches_pallas(scaled):
+    q, c, want = _tc_case(scaled)
+    np.testing.assert_allclose(_scores_3xtf32(q, c), want, rtol=SCORE_TOL, atol=SCORE_TOL)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["unit", "scaled_1e3"])
+def test_single_tf32_product_misses_the_tolerance(scaled):
+    """Why the kernel splits: one TF32 product, even rounded to nearest
+    (wgmma alone would truncate), moves most scores past 1e-5."""
+    q, c, want = _tc_case(scaled)
+    got = _exact(_tf32(q), _tf32(c)).astype(np.float32)
+    outside = np.abs(got - want) > SCORE_TOL + SCORE_TOL * np.abs(want)
+    assert outside.mean() > 0.1
+
+
+@pytest.mark.parametrize("b,d,path", [
+    (1, 256, "stream"), (2, 256, "stream"), (STREAM_MAX_BATCH, 256, "stream"),
+    (STREAM_MAX_BATCH + 1, 256, "tc"), (16, 256, "tc"), (64, 256, "tc"), (512, 256, "tc"),
+    (64, 16, "tc"), (512, 37, "stream"), (70, 6, "stream"),
+])
+def test_scoring_path_rule(b, d, path):
+    """Small batches stream on the CUDA cores; larger ones take the tensor
+    cores where TMA can load the rows (D % 4 == 0)."""
+    assert _scoring_path(b, d) == path
+
+
+def test_stream_limit_matches_the_source():
+    src = (Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/scoring.cu").read_text()
+    assert re.search(r"constexpr int kStreamMaxBatch = (\d+);", src).group(1) == str(STREAM_MAX_BATCH)
 
 
 def _bag_case(v, d, n, b, seed):
