@@ -20,7 +20,10 @@ serving at full width and depth. For a quick check at small sizes run
    against its numpy oracle, each kernel's launch count > 0, and the
    modeled throughput equal to the same run on the ``modeled`` backend;
 5. graph timing — CUDA-event medians per kernel beside the plain version,
-   one PyTorch library call and the card's lower bound;
+   one PyTorch library call and the card's lower bound; for spmv also each
+   of the 16 slices the main path's gang of 16 launches (T/16 tiles), the
+   out-edge sweep, and a gather-only probe (the floor of the layout); the
+   main path's spmv launches by size in tiles (from its profiled run);
 6. retrieval server — with the RMAT graph freed: a 2^20-candidate corpus
    through the item tower, then 8 requests at each of batch 1, 4, 64 and
    512 (user tower, then ``score_topk`` with k=128), every result held
@@ -28,7 +31,8 @@ serving at full width and depth. For a quick check at small sizes run
    both scoring kernels' (the CUDA-core stream at batch 1 and 4, the
    3xTF32 tensor-core kernel at 64 and 512), the planned group widths, wall
    latencies, a profile of one round, and the kernels' times at the
-   server's shapes (scoring also at batch 16);
+   server's shapes (scoring also at batch 16; EmbeddingBag also as the
+   profiler's device time per call, with its kernel launches per call);
 7. LM serving — with the retrieval tables freed: TinyLlama-1.1B
    (``configs/tinyllama_1_1b.py::make_config()``, bf16, random weights
    from the seed) prefills 8 prompts of 2048 tokens through the
@@ -196,6 +200,33 @@ def device_time_by_kernel(run) -> tuple[dict[str, float], float]:
     return by_name, wall
 
 
+def device_ms_per_call(fn, calls: int = TIMED_PER_BATCH) -> tuple[float, int]:
+    """Device time (ms) and kernel launches per call of ``fn``, from
+    torch.profiler over ``calls`` back-to-back calls after one warm-up: the
+    device's own time, free of the host's launch rate that CUDA events
+    around back-to-back calls may measure instead. The profiler can miss a
+    few events of a window (a later profile in a process has lost up to 3
+    of 20), so each kernel counts as its mean over the events seen, times
+    its launches per call rounded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation or e.self_device_time_total <= 0:
+            continue
+        per_call = max(round(e.count / calls), 1)
+        ms += e.self_device_time_total / 1e3 / e.count * per_call
+        launches += per_call
+    return ms, launches
+
+
 def run_mix(core, alg, graph, backend: str):
     """fig20's heterofuse run: 12 sessions, one query each."""
     hubs = np.argsort(-graph.out_degrees().cpu().numpy())
@@ -238,8 +269,9 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
     from repro_torch.graph import rmat_graph
     from repro_torch.kernels.degree_count import degree_count_cuda, degree_count_plain
     from repro_torch.kernels.spmv import (
-        DST_TILE, build_tiles, spmv_rows_cuda, spmv_rows_plain, spmv_tiles,
+        BLOCK_EDGES, DST_TILE, build_tiles, gather_probe_cuda, spmv_rows_cuda, spmv_rows_plain, spmv_tiles,
     )
+    from repro_torch.kernels.spmv import ops as spmv_ops
 
     # 3. kernels vs plain versions at the main path's shapes ------------------
     t0 = time.perf_counter()
@@ -253,8 +285,14 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
     t_in = build_tiles(in_src, in_dst, V)
     t_out = build_tiles(g.src, g.dst, V)
     T = t_in.n_tiles
-    log(f"tables: {T} tiles of {DST_TILE}, long rows in/out: "
-        f"{t_in.long_rows.numel()}/{t_out.long_rows.numel()}")
+    for what, t in (("in", t_in), ("out", t_out)):
+        blk = t.blocks
+        n_pieces = int((blk[1, :-1] >= 0).sum())
+        per_block = t.row_ptr[blk[0, 1:].long()] - t.row_ptr[blk[0, :-1].long()]
+        whole = per_block[blk[1, :-1] < 0].float()
+        log(f"tables {what}: {T} tiles of {DST_TILE}, {t.n_blocks} row blocks of <= {BLOCK_EDGES} edges "
+            f"({n_pieces} of them pieces of {int((blk[1, :-1] == 0).sum())} long rows); whole-row blocks "
+            f"hold {float(whole.mean()):.0f} edges on average, {int(whole.max())} at most")
     # what the TPU kernel's layout (every tile padded to the fullest tile,
     # rounded up to 128 lanes; int32 source + local-target tables) would hold
     tile_edges = t_in.row_ptr[DST_TILE::DST_TILE] - t_in.row_ptr[:-1:DST_TILE]
@@ -355,15 +393,32 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
     }
     log(json.dumps({"main_path": main}))
 
-    # where the main path's device time goes: a second, profiled cuda run
-    by_name, pwall = device_time_by_kernel(lambda: run_mix(core, alg, g, "cuda"))
+    # where the main path's device time goes: a second, profiled cuda run,
+    # which also logs the spmv launches by size (the backend looks up
+    # ops.spmv_tiles at each call)
+    sizes: list[int] = []
+
+    def counted(tables, c, t0, t1):
+        sizes.append(t1 - t0)
+        return spmv_tiles(tables, c, t0, t1)
+
+    spmv_ops.spmv_tiles = counted
+    try:
+        by_name, pwall = device_time_by_kernel(lambda: run_mix(core, alg, g, "cuda"))
+    finally:
+        spmv_ops.spmv_tiles = spmv_tiles
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    spmv_busy = sum(v for k, v in by_name.items() if "spmv" in k)
+    bins = [x for x in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024) if x < T] + [T, T + 1]
+    hist = {f"[{lo}, {hi})": int(n) for lo, hi, n in zip(bins, bins[1:], np.histogram(sizes, bins=bins)[0])}
     log(json.dumps({"main_path_profile": {
         "wall_s": pwall, "device_busy_ms": busy,
         # busy over this profiled run's wall, and over the unprofiled run's
         "device_idle_share": 1.0 - busy / (pwall * 1e3),
         "device_idle_share_of_main_wall": 1.0 - busy / (wall * 1e3),
+        "spmv_device_ms": spmv_busy, "spmv_launches": len(sizes),
+        "spmv_launch_tiles_histogram": hist, "spmv_launch_tiles_mean": float(np.mean(sizes)),
         "top_kernels_ms": {k[:60]: v for k, v in top},
     }}))
 
@@ -379,11 +434,45 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
     lib_ms = time_ms(lambda: csr.matmul(col))
     torch.testing.assert_close(csr.matmul(col).squeeze(1), full[:V], rtol=SPMV_RTOL, atol=SPMV_ATOL)
     b_ms, b_by = bound_ms(E * 4 + row_ptr.numel() * 8 + V * 4 + T * 512 * 4, E, bw)
+    # the main path's gang of 16 cuts a range into 16 launches: each slice
+    # of T/16 tiles, with its own bound
+    w = T // POOL
+    slices = []
+    for a in range(0, T, w):
+        e_s = int(row_ptr[(a + w) * DST_TILE] - row_ptr[a * DST_TILE])
+        slices.append({"tiles": [a, a + w], "edges": e_s,
+                       "ms": time_ms(lambda: spmv_tiles(t_in, contrib, a, a + w)),
+                       "bound_ms": bound_ms(e_s * 4 + (w * DST_TILE + 1) * 8 + V * 4 + w * DST_TILE * 4, e_s, bw)[0]})
+    slice_ms = sorted(x["ms"] for x in slices)
+
+    def per_launch_device_ms(ranges) -> float:
+        def launch_all():
+            for a, b in ranges:
+                spmv_tiles(t_in, contrib, a, b)
+        return device_ms_per_call(launch_all, calls=3)[0] / len(ranges)
+
+    slice_dev = per_launch_device_ms([(a, a + w) for a in range(0, T, w)])
+    two_dev = per_launch_device_ms([(a, a + 2) for a in range(0, T, 2)])
+    probe_ms = time_ms(lambda: gather_probe_cuda(t_in.src, contrib))
+    out_ms = time_ms(lambda: spmv_tiles(t_out, frontier, 0, T))
+    spmv_shapes = {
+        "full_in_sweep": {"tiles": T, "edges": E, "ms": k_ms, "bound_ms": b_ms},
+        "slice_T_over_16": {"tiles": w, "ms_min": slice_ms[0], "ms_median": float(np.median(slice_ms)),
+                            "ms_max": slice_ms[-1], "ms_sum_of_16": float(sum(slice_ms)),
+                            "device_ms_per_launch": slice_dev, "slices": slices},
+        "two_tile_ranges": {"launches": T // 2, "device_ms_per_launch": two_dev},
+        "full_out_sweep_bfs": {"tiles": T, "edges": int(t_out.row_ptr[-1]), "ms": out_ms},
+        "gather_probe_full_in": {"edges": E, "ms": probe_ms},
+    }
+    log(json.dumps({"spmv_times": spmv_shapes}))
     kernels = [{
-        "name": "spmv", "route": "cuda", "source": "src/repro_torch/csrc/spmv.cu",
+        "name": "spmv", "design": "row blocks of <= BLOCK_EDGES edges, a CTA each; long rows in pieces",
+        "route": "cuda", "source": "src/repro_torch/csrc/spmv.cu",
         "replaces": "src/repro/kernels/spmv/spmv.py:47",
         "launches": launches["spmv"], "max_abs_err": spmv_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "gather_probe_ms": probe_ms, "slice_ms_median": float(np.median(slice_ms)),
+        "slice_device_ms": slice_dev, "two_tile_device_ms": two_dev,
     }]
     counts = torch.zeros(V, dtype=torch.int32, device=dev)
     k_ms = time_ms(lambda: degree_count_cuda(ids, counts))
@@ -592,14 +681,28 @@ def retrieval_path(dev: torch.device, bw: float) -> list[dict]:
         rows = torch.unique(ids).numel()  # each touched row read once
         n = ids.numel()
         b_ms, b_by = bound_ms(4 * (rows * d + 3 * n + b * d), 2 * n * d, bw)
+        def kernel():
+            return embedding_bag_cuda(table, ids, segs, w, b)
+
+        def library():
+            return F.embedding_bag(ids, table, offsets, mode="sum", per_sample_weights=w)
+
+        k_dev, k_launches = device_ms_per_call(kernel)
+        l_dev, l_launches = device_ms_per_call(library)
+        # one launch a call (the earlier two-kernel version issued two)
+        if k_launches != 1:
+            raise AssertionError(f"an embedding_bag call issued {k_launches} kernel launches, not one")
         bag_shapes.append({
             "shape": f"{field}: {b} bags x {hot} ids, {rows} distinct rows of {table.shape[0]}",
-            "ms": time_ms(lambda: embedding_bag_cuda(table, ids, segs, w, b)),
+            "ms": time_ms(kernel),
             "plain_ms": time_ms(lambda: embedding_bag_plain(table, ids, segs, w, b)),
-            "library_ms": time_ms(lambda: F.embedding_bag(
-                ids, table, offsets, mode="sum", per_sample_weights=w)),
+            "library_ms": time_ms(library),
             "bound_ms": b_ms, "bound_by": b_by,
+            # the profiler's device time per call beside the event times above
+            "device_ms": k_dev, "library_device_ms": l_dev,
+            "launches_per_call": k_launches, "library_launches_per_call": l_launches,
         })
+        log(json.dumps({"embedding_bag_times": bag_shapes[-1]}))
     main_shape = bag_shapes[0]  # the corpus's item_tags field
     kernels.append({
         "name": "embedding_bag", "route": "cuda", "source": "src/repro_torch/csrc/embedding_bag.cu",

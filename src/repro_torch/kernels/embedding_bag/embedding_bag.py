@@ -6,7 +6,9 @@ Both functions return the float32 ``[num_bags, D]`` per-bag sums
 ``segments[i] == b``; a bag with no ids comes out as zeros. ``ids`` and
 ``segments`` are int32, ``segments`` sorted non-decreasing (the kernel
 finds each bag's ids from it), ``weights`` float32 or ``None`` for all
-ones. The source and its design note are ``csrc/embedding_bag.cu``.
+ones. An id whose segment lies outside ``[0, num_bags)`` falls in no bag,
+as ``jax.ops.segment_sum`` drops it. The source and its design note are
+``csrc/embedding_bag.cu``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,14 @@ import ctypes
 import torch
 
 from .._build import check, load
+
+
+def bag_index(segments: torch.Tensor, num_bags: int) -> torch.Tensor:
+    """int64 bag of each id, with ids outside ``[0, num_bags)`` sent to one
+    extra row ``num_bags`` that the caller cuts off: tensor ops only, so a
+    CUDA caller never waits on the host."""
+    seg = segments.to(torch.int64)
+    return torch.where((seg >= 0) & (seg < num_bags), seg, num_bags)
 
 
 def embedding_bag_plain(
@@ -28,8 +38,8 @@ def embedding_bag_plain(
     rows = table[ids.to(torch.int64)]
     if weights is not None:
         rows = rows * weights[:, None]
-    out = torch.zeros(num_bags, table.shape[1], dtype=table.dtype, device=table.device)
-    return out.index_add_(0, segments.to(torch.int64), rows)
+    out = torch.zeros(num_bags + 1, table.shape[1], dtype=table.dtype, device=table.device)
+    return out.index_add_(0, bag_index(segments, num_bags), rows)[:num_bags]
 
 
 def _lib() -> ctypes.CDLL:
@@ -37,7 +47,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.embedding_bag
     if fn.argtypes is None:  # first load: declare the C signature
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [p, i64, p, p, p, i64, p, p, i64, p]
+        fn.argtypes = [p, i64, p, p, p, i64, p, i64, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -49,9 +59,10 @@ def embedding_bag_cuda(
     weights: torch.Tensor | None,
     num_bags: int,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream. ``segments`` must be
-    sorted and ``ids`` lie in ``[0, V)``: both are the caller's to ensure
-    (checking them would cost a sync with the host)."""
+    """Launch the CUDA kernel (one launch, no scratch) on the current
+    stream. ``segments`` must be sorted and ``ids`` lie in ``[0, V)``: both
+    are the caller's to ensure (checking them would cost a sync with the
+    host)."""
     dev = table.device
     named = [("table", table, torch.float32, 2), ("ids", ids, torch.int32, 1),
              ("segments", segments, torch.int32, 1)]
@@ -67,14 +78,15 @@ def embedding_bag_cuda(
     n = ids.shape[0]
     if segments.shape[0] != n or (weights is not None and weights.shape[0] != n):
         raise ValueError("embedding_bag_cuda: ids, segments and weights differ in length")
+    if n > 2**31 - 1 or num_bags >= 2**31 - 1:
+        raise ValueError("embedding_bag_cuda: the kernel indexes ids and bags in 32 bits")
     out = torch.empty(num_bags, table.shape[1], dtype=torch.float32, device=dev)
     if num_bags <= 0:
         return out
-    offsets = torch.empty(num_bags + 1, dtype=torch.int64, device=dev)  # kernel scratch
     status = _lib().embedding_bag(
         table.data_ptr(), table.shape[1], ids.data_ptr(), segments.data_ptr(),
-        None if weights is None else weights.data_ptr(), n, offsets.data_ptr(),
-        out.data_ptr(), num_bags, torch.cuda.current_stream(dev).cuda_stream,
+        None if weights is None else weights.data_ptr(), n, out.data_ptr(), num_bags,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check(status, "embedding_bag")
     embedding_bag_cuda.launches += 1

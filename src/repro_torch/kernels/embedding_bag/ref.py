@@ -1,9 +1,12 @@
 """Plain-torch oracle: gather, scale, segment sum (the reference's
-``take`` + ``segment_sum``)."""
+``take`` + ``segment_sum``, which drops ids whose segment lies outside
+``[0, num_bags)``)."""
 import torch
 
 
 def embedding_bag_ref(table, ids, segments, weights, num_bags: int) -> torch.Tensor:
     rows = table[ids.to(torch.int64)] * weights[:, None]
+    seg = segments.to(torch.int64)
+    keep = (seg >= 0) & (seg < num_bags)
     out = torch.zeros(num_bags, table.shape[1], dtype=table.dtype, device=table.device)
-    return out.index_add_(0, segments.to(torch.int64), rows)
+    return out.index_add_(0, seg[keep], rows[keep])

@@ -1,3 +1,3 @@
-from .ops import SpmvTiles, build_tiles, spmv, spmv_tiles
+from .ops import SpmvTiles, build_tiles, row_blocks, spmv, spmv_tiles
 from .ref import spmv_ref
-from .spmv import DST_TILE, LONG_ROW, spmv_rows_cuda, spmv_rows_plain
+from .spmv import BLOCK_EDGES, DST_TILE, gather_probe_cuda, spmv_rows_cuda, spmv_rows_plain

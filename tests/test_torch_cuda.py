@@ -23,7 +23,14 @@ from repro_torch.kernels.scoring.scoring import (  # noqa: E402
     _scoring_path,
     _scoring_variant,
 )
-from repro_torch.kernels.spmv import build_tiles, spmv_rows_cuda, spmv_rows_plain, spmv_tiles  # noqa: E402
+from repro_torch.kernels.spmv import (  # noqa: E402
+    BLOCK_EDGES,
+    build_tiles,
+    spmv_rows_cuda,
+    spmv_rows_plain,
+    spmv_tiles,
+)
+from repro_torch.layers import embedding as layers  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.recsys import FieldSpec, TwoTower, TwoTowerConfig  # noqa: E402
 
@@ -71,13 +78,14 @@ def _edges(v, e, seed, targets):
 
 
 def test_spmv_kernel_matches_plain(cuda):
-    # two hub rows past LONG_ROW (~21k and ~5.3k edges) take the
-    # block-per-row pass, the rest one warp each
+    # two hub rows past BLOCK_EDGES (~21k and ~5.3k edges) are cut into
+    # pieces that the last of their CTAs adds up, the rest go in row blocks
     src, dst, contrib = _edges(5000, 80000, 11, np.r_[0:5000, [17] * 2000, [4000] * 500])
     tables = build_tiles(torch.from_numpy(src).to(cuda), torch.from_numpy(dst).to(cuda), 5000)
-    assert tables.long_rows.cpu().tolist() == [17, 4000]
+    pieces = tables.blocks[0][tables.blocks[1] >= 0].cpu()
+    assert sorted(set(pieces.tolist())) == [17, 4000] and pieces.numel() > 2
     c = torch.from_numpy(contrib).to(cuda)
-    for a, b in [(0, tables.n_tiles), (3, 7), (9, 10)]:
+    for a, b in [(0, tables.n_tiles), (3, 7), (9, 10), (0, 1), (7, 8)]:
         before = spmv_rows_cuda.launches
         got = spmv_tiles(tables, c, a, b)
         again = spmv_tiles(tables, c, a, b)
@@ -86,6 +94,33 @@ def test_spmv_kernel_matches_plain(cuda):
         want = spmv_rows_plain(tables.row_ptr[r0 : r1 + 1], tables.src, c).reshape(b - a, 512)
         torch.testing.assert_close(got, want, rtol=SPMV_RTOL, atol=SPMV_ATOL)
         assert torch.equal(got, again)  # no float atomics: bit-repeatable
+    assert not tables.scratch[1].any()  # every long row's counter is back at 0
+
+
+@pytest.mark.parametrize("hub", [BLOCK_EDGES + 1, 3 * BLOCK_EDGES, 70000])
+def test_spmv_hub_rows_above_block_edges(cuda, hub):
+    """A row just past BLOCK_EDGES (two pieces, the second of one edge), an
+    exact multiple, and one as long as RMAT sf20's largest, beside rows of
+    every length up to BLOCK_EDGES; a range that starts and ends inside the
+    table, on the full tables and on a slab, same bits twice."""
+    rng = np.random.default_rng(hub)
+    lens = np.r_[rng.integers(0, 40, 3000), [hub, BLOCK_EDGES, BLOCK_EDGES // 2 + 1, 33, 32, 0]]
+    targets = np.repeat(rng.permutation(lens.shape[0]), lens)
+    v = lens.shape[0]
+    src = rng.integers(0, v, targets.shape[0]).astype(np.int32)
+    tables = build_tiles(torch.from_numpy(src).to(cuda), torch.from_numpy(targets.astype(np.int32)).to(cuda), v)
+    c = torch.from_numpy(rng.random(v).astype(np.float32)).to(cuda)
+    t = tables.n_tiles
+    full = spmv_tiles(tables, c, 0, t)
+    for a, b in [(0, t), (1, t - 1), (2, 3)]:
+        got, again = spmv_tiles(tables, c, a, b), spmv_tiles(tables, c, a, b)
+        want = spmv_rows_plain(tables.row_ptr[a * 512 : b * 512 + 1], tables.src, c).reshape(b - a, 512)
+        torch.testing.assert_close(got, want, rtol=SPMV_RTOL, atol=SPMV_ATOL)
+        assert torch.equal(got, again) and torch.equal(got.reshape(-1), full.reshape(-1)[a * 512 : b * 512])
+        slab = tables.slab(a, b)
+        assert torch.equal(spmv_tiles(slab, c, 0, b - a), got)
+    counts = spmv_tiles(tables, torch.ones(v, device=cuda), 0, t).reshape(-1)[:v]
+    assert torch.equal(counts.cpu(), torch.from_numpy(np.bincount(targets, minlength=v).astype(np.float32)))
 
 
 def test_spmv_slab_on_card(cuda):
@@ -93,7 +128,9 @@ def test_spmv_slab_on_card(cuda):
     tables = build_tiles(torch.from_numpy(src).to(cuda), torch.from_numpy(dst).to(cuda), 3000)
     c = torch.from_numpy(contrib).to(cuda)
     slab = tables.slab(2, 6)
-    assert slab.long_rows_host.tolist() == [2100 - 2 * 512]  # a ~9k-edge hub row
+    pieces = slab.blocks[0][slab.blocks[1] >= 0].tolist()
+    n = int(np.count_nonzero(dst == 2100))  # a ~9k-edge hub row, in pieces
+    assert pieces == [2100 - 2 * 512] * -(-n // BLOCK_EDGES)
     assert torch.equal(spmv_tiles(slab, c, 0, 4), spmv_tiles(tables, c, 2, 6))
 
 
@@ -111,8 +148,18 @@ def test_degree_count_kernel_matches_plain(cuda):
 def test_wrappers_raise_instead_of_falling_back(cuda):
     rp = torch.tensor([0, 1], dtype=torch.int64, device=cuda)
     s = torch.zeros(1, dtype=torch.int32, device=cuda)
+    blocks = torch.tensor([[0, 1], [-1, -1]], dtype=torch.int32, device=cuda)
+    scratch = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
+    kw = dict(block_lo=0, block_hi=1, row_base=0, n_rows=1)
     with pytest.raises(ValueError, match="int64|int32|float32"):
-        spmv_rows_cuda(rp.to(torch.int32), s, torch.zeros(1, device=cuda), s[:0], row_base=0)
+        spmv_rows_cuda(rp.to(torch.int32), s, torch.zeros(1, device=cuda), blocks, scratch, **kw)
+    for i in range(5):  # any one argument on the CPU
+        args = [rp, s, torch.zeros(1, device=cuda), blocks, scratch]
+        args[i] = args[i].cpu()
+        with pytest.raises(ValueError, match="must be on"):
+            spmv_rows_cuda(*args, **kw)
+    with pytest.raises(ValueError, match="outside"):
+        spmv_rows_cuda(rp, s, torch.zeros(1, device=cuda), blocks, scratch, **{**kw, "block_hi": 2})
     with pytest.raises(ValueError, match="int32"):
         degree_count_cuda(s.to(torch.int64), torch.zeros(4, dtype=torch.int32, device=cuda))
 
@@ -269,6 +316,71 @@ def test_embedding_bag_kernel_matches_plain(cuda, d):
     out = embedding_bag_cuda(table, ids_t[:10], segs_t[:10], None, bags)
     assert not out[int(segs_t[9]) + 1 :].any()
     assert not embedding_bag_cuda(table, ids_t[:0], segs_t[:0], None, 5).any()
+
+
+def _bags_in_id_order(table, ids, segs, weights, bags):
+    """float32 bag sums adding each row (scaled by its weight, one rounding)
+    in id order, one rounding per add: the kernel's order, bit for bit."""
+    t, i, s = table.cpu().numpy(), ids.cpu().numpy(), segs.cpu().numpy()
+    w = None if weights is None else weights.cpu().numpy()
+    out = np.zeros((bags, t.shape[1]), np.float32)
+    for k in range(i.shape[0]):
+        row = t[i[k]] if w is None else w[k] * t[i[k]]
+        out[s[k]] = out[s[k]] + row
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("d", [4, 6, 256])
+def test_embedding_bag_kernel_bag_lengths(cuda, d, weighted):
+    """Bags of 0, 1, 7, 32 and 1,000 ids (past the kernel's loads in
+    flight, and past its search's first window), on float4 rows (D = 4,
+    256) and scalar ones (D = 6), and on a table view 4 bytes off a 16-byte
+    boundary; one launch a call, the bits of the sums in id order, twice.
+    The plain version's atomic adds take a 1,000-id bag of unit-normal rows
+    (sums up to ~100) in another order, some float32 steps of those sums
+    away: 1e-4 absolute."""
+    rng = np.random.default_rng(d + weighted)
+    v = 5000
+    lens = np.array([0, 1, 7, 32, 1000, 0, 32, 7, 1, 0] * 3)
+    bags = lens.shape[0]
+    segs = np.repeat(np.arange(bags), lens).astype(np.int32)
+    n = segs.shape[0]
+    ids = torch.from_numpy(rng.integers(0, v, n).astype(np.int32)).to(cuda)
+    segs_t = torch.from_numpy(segs).to(cuda)
+    w = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda) if weighted else None
+    flat = torch.from_numpy(rng.normal(size=v * d + 1).astype(np.float32)).to(cuda)
+    for table in (flat[: v * d].view(v, d), flat[1:].view(v, d)):  # aligned, then 4 B off
+        before = embedding_bag_cuda.launches
+        got = embedding_bag_cuda(table, ids, segs_t, w, bags)
+        again = embedding_bag_cuda(table, ids, segs_t, w, bags)
+        assert embedding_bag_cuda.launches == before + 2
+        assert torch.equal(got, again)
+        assert torch.equal(got.cpu(), _bags_in_id_order(table, ids, segs_t, w, bags))
+        want = embedding_bag_plain(table, ids, segs_t, w, bags)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        assert not got[torch.from_numpy(lens == 0).to(cuda)].any()
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_out_of_range_segments_on_card_equal_cpu(cuda, mode):
+    """Ids whose segment lies outside [0, num_bags) fall in no bag on the
+    card (the kernel's search leaves them out) as on the CPU (the plain
+    version's dump row)."""
+    rng = np.random.default_rng(17)
+    table = rng.normal(size=(400, 256)).astype(np.float32)
+    ids = rng.integers(0, 400, 3000).astype(np.int32)
+    segs = rng.integers(-20, 140, 3000).astype(np.int32)
+    w = rng.normal(size=3000).astype(np.float32)
+    for weights in (None, w):
+        args = (table, ids, segs)
+        cpu = layers.embedding_bag(*(torch.from_numpy(a) for a in args), 120, mode=mode,
+                                   weights=None if weights is None else torch.from_numpy(weights))
+        before = embedding_bag_cuda.launches
+        card = layers.embedding_bag(*(torch.from_numpy(a).to(cuda) for a in args), 120, mode=mode,
+                                    weights=None if weights is None else torch.from_numpy(weights).to(cuda))
+        assert embedding_bag_cuda.launches == before + 1
+        torch.testing.assert_close(card.cpu(), cpu, rtol=1e-5, atol=1e-6)
 
 
 def test_new_wrappers_raise_instead_of_falling_back(cuda):

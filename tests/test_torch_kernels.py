@@ -17,9 +17,12 @@ from repro_torch.kernels.degree_count import (  # noqa: E402
     degree_count_cuda,
     degree_count_ref,
 )
+from repro_torch.graph import rmat_edges  # noqa: E402
 from repro_torch.kernels.spmv import (  # noqa: E402
-    LONG_ROW,
+    BLOCK_EDGES,
+    DST_TILE,
     build_tiles,
+    row_blocks,
     spmv,
     spmv_ref,
     spmv_rows_cuda,
@@ -87,10 +90,16 @@ def test_build_tiles_layout():
     np.testing.assert_array_equal(tables.row_ptr.numpy(), np.concatenate([[0], np.cumsum(counts)]))
     # stable sort by target keeps each row's edges in input order
     np.testing.assert_array_equal(tables.src.numpy(), src[np.argsort(dst, kind="stable")])
-    # row 3 holds ~4/7 of the edges: the one hub row past LONG_ROW
-    np.testing.assert_array_equal(tables.long_rows_host, np.nonzero(counts > LONG_ROW)[0])
-    np.testing.assert_array_equal(tables.long_rows_host, [3])
-    np.testing.assert_array_equal(tables.long_rows.numpy(), tables.long_rows_host)
+    # rows 1, 2 and 650 (~1.4k edges) and the hub row 3 (~5.7k) pass
+    # BLOCK_EDGES and are cut into 2, 2, 2 and 6 pieces; the empty rows 0,
+    # 4-511, 512-649 and 651-1023 are blocks of whole rows, one per run
+    assert BLOCK_EDGES == 1024 and counts[[1, 2, 3, 650]].tolist() == [1418, 1408, 5707, 1467]
+    np.testing.assert_array_equal(tables.blocks.numpy(), [
+        [0, 1, 1, 2, 2, 3, 3, 3, 3, 3, 3, 4, 512, 650, 650, 651, 1024],
+        [-1, 0, 1, 0, 1, 0, 1, 2, 3, 4, 5, -1, -1, 0, 1, -1, -1],
+    ])
+    np.testing.assert_array_equal(tables.tile_blocks, [0, 12, 16])
+    assert tables.scratch.shape == (2, 16) and not tables.scratch.any()
 
 
 def test_spmv_slab_matches_full_tables():
@@ -100,20 +109,110 @@ def test_spmv_slab_matches_full_tables():
     assert slab.row_ptr[0] == 0 and slab.src.shape[0] == int(slab.row_ptr[-1])
     c = torch.from_numpy(contrib)
     torch.testing.assert_close(spmv_tiles(slab, c, 0, 2), spmv_tiles(tables, c, 1, 3), rtol=0, atol=0)
-    assert (slab.long_rows_host == np.array([1500 - 512])).all()
+    # the ~6k-edge hub row 1500 is the slab's row 988, in pieces
+    n = int(np.count_nonzero(dst == 1500))
+    pieces = slab.blocks[0][slab.blocks[1] >= 0]
+    assert n > BLOCK_EDGES and pieces.tolist() == [1500 - 512] * -(-n // BLOCK_EDGES)
 
 
-def test_long_row_threshold_matches_kernel_source():
-    """The host lists the rows past LONG_ROW; the kernel leaves exactly the
-    rows past its kLongRow to the block-per-row pass. The two must agree."""
+def test_block_edges_match_kernel_source():
+    """The host cuts rows into blocks of at most BLOCK_EDGES edges; the
+    kernel's shared memory and its piece offsets are sized by its
+    kBlockEdges. The two must agree."""
     import re
     from pathlib import Path
 
     import repro_torch
 
     cu = Path(repro_torch.__file__).parent / "csrc" / "spmv.cu"
-    found = re.findall(r"constexpr int64_t kLongRow = (\d+);", cu.read_text())
-    assert found == [str(LONG_ROW)]
+    found = re.findall(r"constexpr int kBlockEdges = (\d+);", cu.read_text())
+    assert found == [str(BLOCK_EDGES)]
+    assert re.findall(r"constexpr int kTileRows = (\d+);", cu.read_text()) == [str(DST_TILE)]
+
+
+def _check_partition(row_ptr, blocks, tile_blocks, block_edges):
+    """Every row in exactly one block of whole rows or one long row's
+    pieces; no block crosses a tile; a block of whole rows holds at most
+    block_edges edges; only rows past block_edges are cut, each into
+    ceil(len / block_edges) pieces 0, 1, ...; tile_blocks points at each
+    tile's first block."""
+    rp = row_ptr.numpy()
+    rows, piece = blocks.numpy()
+    n_rows = rp.shape[0] - 1
+    nb = rows.shape[0] - 1
+    assert rows[0] == 0 and rows[nb] == n_rows and np.all(np.diff(rows) >= 0)
+    covered = np.zeros(n_rows, np.int64)
+    i = 0
+    while i < nb:
+        r = rows[i]
+        if piece[i] < 0:
+            end = rows[i + 1]
+            assert end > r and r // DST_TILE == (end - 1) // DST_TILE
+            assert rp[end] - rp[r] <= block_edges
+            covered[r:end] += 1
+            i += 1
+            continue
+        n = rp[r + 1] - rp[r]
+        k = -(-n // block_edges)
+        assert n > block_edges and k >= 2
+        np.testing.assert_array_equal(rows[i : i + k], r)
+        np.testing.assert_array_equal(piece[i : i + k], np.arange(k))
+        assert rows[i + k] == r + 1
+        covered[r] += 1
+        i += k
+    np.testing.assert_array_equal(covered, 1)
+    starts = np.searchsorted(rows[:nb], np.arange(n_rows // DST_TILE + 1) * DST_TILE)
+    np.testing.assert_array_equal(np.asarray(tile_blocks), starts)
+
+
+def _partition_graph(name):
+    """(src, dst, V) for the partition cases."""
+    rng = np.random.default_rng(len(name))
+    if name == "single_edge":
+        return np.array([0], np.int32), np.array([5], np.int32), 10
+    if name == "empty_tiles":  # tiles 1 and 3 of 5 hold no edge
+        dst = rng.choice(np.r_[0:512, 1024:1536, 2048:2200], 6000)
+        return rng.integers(0, 2200, 6000).astype(np.int32), dst.astype(np.int32), 2200
+    if name == "one_hub_tile":  # one tile with a 20k-edge hub, a ~3k row, and the rest sparse
+        dst = np.r_[np.full(20000, 700), np.full(3000, 901), rng.integers(0, 3000, 2000)]
+        return rng.integers(0, 3000, dst.shape[0]).astype(np.int32), dst.astype(np.int32), 3000
+    if name == "no_edges":
+        return np.zeros(0, np.int32), np.zeros(0, np.int32), 1500
+    src, dst = rmat_edges(13, seed=3)  # scale-free: empty rows, hubs, medium rows
+    return src.astype(np.int32), dst.astype(np.int32), 1 << 13
+
+
+PARTITION_GRAPHS = ["single_edge", "empty_tiles", "one_hub_tile", "no_edges", "rmat13"]
+
+
+@pytest.mark.parametrize("block_edges", [512, BLOCK_EDGES, 4096])  # the kernel's is 1024
+@pytest.mark.parametrize("graph", PARTITION_GRAPHS)
+def test_row_blocks_partition(graph, block_edges):
+    src, dst, v = _partition_graph(graph)
+    tables = build_tiles(torch.from_numpy(src), torch.from_numpy(dst), v)
+    blocks, tile_blocks = row_blocks(tables.row_ptr, block_edges)
+    _check_partition(tables.row_ptr, blocks, tile_blocks, block_edges)
+    if block_edges == BLOCK_EDGES:  # what build_tiles cut
+        assert torch.equal(blocks, tables.blocks) and np.array_equal(tile_blocks.numpy(), tables.tile_blocks)
+    if graph == "one_hub_tile":  # the ~20k hub and the ~3k row in pieces, or the ~3k row whole
+        assert np.count_nonzero(blocks[1].numpy() >= 0) == {512: 40 + 6, 1024: 20 + 3, 4096: 5}[block_edges]
+
+
+@pytest.mark.parametrize("graph", PARTITION_GRAPHS)
+def test_row_blocks_of_a_slab_are_the_rebased_slice(graph):
+    src, dst, v = _partition_graph(graph)
+    tables = build_tiles(torch.from_numpy(src), torch.from_numpy(dst), v)
+    t = tables.n_tiles
+    for a, b in {(0, t), (0, max(t // 2, 1)), (t // 2, t), (t - 1, t)}:
+        if a >= b:
+            continue
+        slab = tables.slab(a, b)
+        i0, i1 = int(tables.tile_blocks[a]), int(tables.tile_blocks[b])
+        np.testing.assert_array_equal(slab.tile_blocks, tables.tile_blocks[a : b + 1] - i0)
+        np.testing.assert_array_equal(slab.blocks[0].numpy(), tables.blocks[0, i0 : i1 + 1].numpy() - a * DST_TILE)
+        np.testing.assert_array_equal(slab.blocks[1, :-1].numpy(), tables.blocks[1, i0:i1].numpy())
+        assert slab.scratch.shape == (2, i1 - i0) and not slab.scratch.any()
+        _check_partition(slab.row_ptr, slab.blocks, slab.tile_blocks, BLOCK_EDGES)
 
 
 @pytest.mark.parametrize("num_counters", [2048, 4096, 1000, 3001])
@@ -156,7 +255,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     the plain version through the CUDA entry points."""
     rp = torch.tensor([0, 1], dtype=torch.int64)
     s = torch.zeros(1, dtype=torch.int32)
+    blocks = torch.tensor([[0, 1], [-1, -1]], dtype=torch.int32)
     with pytest.raises(ValueError, match="must be on"):
-        spmv_rows_cuda(rp, s, torch.zeros(1), s[:0], row_base=0)
+        spmv_rows_cuda(rp, s, torch.zeros(1), blocks, torch.zeros(2, 1, dtype=torch.int32),
+                       block_lo=0, block_hi=1, row_base=0, n_rows=1)
     with pytest.raises(ValueError, match="must be on"):
         degree_count_cuda(s, torch.zeros(4, dtype=torch.int32))

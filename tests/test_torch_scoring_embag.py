@@ -15,11 +15,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.embedding_bag import embedding_bag as jax_embedding_bag  # noqa: E402
 from repro.kernels.scoring import scoring_pallas  # noqa: E402
 from repro.kernels.scoring import score_topk as jax_score_topk  # noqa: E402
+from repro.layers import embedding as jax_layers  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag,
     embedding_bag_cuda,
+    embedding_bag_plain,
     embedding_bag_ref,
 )
+from repro_torch.layers import embedding as torch_layers  # noqa: E402
 from repro_torch.kernels.scoring import (  # noqa: E402
     CAND_TILE,
     NEG,
@@ -234,3 +237,48 @@ def test_embedding_bag_cuda_raises_on_cpu_tensors():
     i = torch.zeros(3, dtype=torch.int32)
     with pytest.raises(ValueError, match="must be on"):
         embedding_bag_cuda(t, i, i, None, 2)
+
+
+# ids whose segment lies outside [0, num_bags) fall in no bag, as
+# jax.ops.segment_sum and segment_max drop them: segments from the seed
+# over [lo, hi) against num_bags bags
+OUT_OF_RANGE = {
+    # name: (lo, hi, bags)
+    "negative": (-4, 9, 9),
+    "past_num_bags": (0, 14, 9),
+    "both_sides_and_empty_bags": (-3, 40, 30),   # ~200 ids over 43 values: bags left empty
+    "all_outside": (9, 20, 9),
+}
+# the reference's float32 sums in another order; max picks one of the rows
+OOR_RTOL, OOR_ATOL = 1e-5, 1e-6
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+@pytest.mark.parametrize("case", list(OUT_OF_RANGE))
+def test_embedding_bag_drops_out_of_range_segments(case, mode, weighted):
+    lo, hi, b = OUT_OF_RANGE[case]
+    rng = np.random.default_rng(len(case) * 7 + len(mode))
+    table = rng.normal(size=(300, 16)).astype(np.float32)
+    ids = rng.integers(0, 300, 200).astype(np.int32)
+    segs = rng.integers(lo, hi, 200).astype(np.int32)
+    w = rng.normal(size=200).astype(np.float32) if weighted else None
+    if weighted:
+        w[::5] = 0.0  # weight-0 ids still count in the mean
+    want = np.asarray(jax_layers.embedding_bag(
+        jnp.asarray(table), jnp.asarray(ids), jnp.asarray(segs), b, mode=mode,
+        weights=None if w is None else jnp.asarray(w)))
+    got = torch_layers.embedding_bag(
+        torch.from_numpy(table), torch.from_numpy(ids), torch.from_numpy(segs), b, mode=mode,
+        weights=None if w is None else torch.from_numpy(w)).numpy()
+    assert got.shape == want.shape == (b, 16)
+    if mode == "max":
+        np.testing.assert_array_equal(got, want)  # empty bags -inf in both
+    else:
+        np.testing.assert_allclose(got, want, rtol=OOR_RTOL, atol=OOR_ATOL)
+    if mode == "sum":  # the plain version and the oracle drop them too
+        args = [torch.from_numpy(a) for a in (table, ids, segs)]
+        ones = torch.ones(200) if w is None else torch.from_numpy(w)
+        plain = embedding_bag_plain(*args, None if w is None else ones, b)
+        np.testing.assert_allclose(plain.numpy(), want, rtol=OOR_RTOL, atol=OOR_ATOL)
+        np.testing.assert_allclose(embedding_bag_ref(*args, ones, b).numpy(), want, rtol=OOR_RTOL, atol=OOR_ATOL)
