@@ -13,7 +13,11 @@ serving at full width and depth. For a quick check at small sizes run
 2. build — all five CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
    sm_90a, one nvcc per source, in parallel);
 3. graph kernels vs their plain PyTorch versions on the card, at the main
-   path's shapes (RMAT scale 20, Graph500 parameters, seed 3);
+   path's shapes (RMAT scale 20, Graph500 parameters, seed 3); degree_count
+   equal in bits on the whole endpoint table, a range, the 16 Ki-edge
+   package whose src row is one id, a range from an odd edge, and ids mod
+   1,000,003, by the wrapper's choice and with each of its two kernels
+   forced; ``ops.degree_count`` over the whole graph equal to the oracle;
 4. graph main path — fig20's tenant mix (6 PageRank-pull, 4 BFS, 2
    degree-count sessions) through ``MultiQueryEngine`` with the ``cuda``
    backend, stealing and heterogeneous fusion on; every result checked
@@ -23,7 +27,9 @@ serving at full width and depth. For a quick check at small sizes run
    one PyTorch library call and the card's lower bound; for spmv also each
    of the 16 slices the main path's gang of 16 launches (T/16 tiles), the
    out-edge sweep, and a gather-only probe (the floor of the layout); the
-   main path's spmv launches by size in tiles (from its profiled run);
+   main path's spmv launches by size in tiles (from its profiled run); for
+   degree_count also the device time of each of the 1,024 16 Ki-edge
+   packages launched alone (the main path's launch shape: mean and worst);
 6. retrieval server — with the RMAT graph freed: a 2^20-candidate corpus
    through the item tower, then 8 requests at each of batch 1, 4, 64 and
    512 (user tower, then ``score_topk`` with k=128), every result held
@@ -80,6 +86,7 @@ PR_ITERS = 5
 # times float32 epsilon, ~2e-5 for the longest rows of this graph
 SPMV_RTOL, SPMV_ATOL = 1e-4, 1e-12
 PR_RTOL, PR_ATOL = 2e-4, 1e-8  # the JAX package's PageRank tolerance
+DC_PATHS = ("runs", "private")  # the degree-count kernels, each forced beside the dispatch
 
 # the retrieval server (examples/serve_retrieval.py) at the full width of
 # configs/two_tower_retrieval.py::make_config(), with the reference's cell
@@ -227,6 +234,38 @@ def device_ms_per_call(fn, calls: int = TIMED_PER_BATCH) -> tuple[float, int]:
     return ms, launches
 
 
+def short_kernel_name(name: str, width: int = 90) -> str:
+    """A profiler kernel name without its namespaces and launch arguments,
+    cut to ``width``: enough to tell PyTorch's elementwise functors apart."""
+    for noise in ("void ", "at::native::", "(anonymous namespace)::", "std::array<char*, 1ul>",
+                  "std::array<char*, 2ul>", "std::array<char*, 3ul>"):
+        name = name.replace(noise, "")
+    return name.split("(")[0][:width]
+
+
+def device_ms_each(launch_all, launches: int, kernel: str, rounds: int = 3) -> dict:
+    """Device time (ms) of each of the ``launches`` launches of the kernel
+    whose name holds ``kernel`` that one call of ``launch_all`` makes, from
+    torch.profiler over ``rounds`` calls after one warm-up: each launch's
+    median over the rounds, then their mean and the worst. Where the
+    profiler dropped events, the mean and worst of the events seen."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    launch_all()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            launch_all()
+        torch.cuda.synchronize()
+    seen = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and kernel in e.name)
+    ms = np.array([d for _, d in seen])
+    if ms.size == rounds * launches:
+        ms = np.median(ms.reshape(rounds, launches), axis=0)
+    return {"launches": launches, "events_seen": len(seen), "mean_ms": float(ms.mean()), "worst_ms": float(ms.max())}
+
+
 def run_mix(core, alg, graph, backend: str):
     """fig20's heterofuse run: 12 sessions, one query each."""
     hubs = np.argsort(-graph.out_degrees().cpu().numpy())
@@ -267,7 +306,10 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
     from repro_torch import algorithms as alg
     from repro_torch import core
     from repro_torch.graph import rmat_graph
+    from repro_torch.algorithms.degree_count import PACKAGE_EDGES
+    from repro_torch.kernels.degree_count import degree_count as degree_count_ops
     from repro_torch.kernels.degree_count import degree_count_cuda, degree_count_plain
+    from repro_torch.kernels.degree_count.degree_count import _degree_count_path, _degree_count_variant
     from repro_torch.kernels.spmv import (
         BLOCK_EDGES, DST_TILE, build_tiles, gather_probe_cuda, spmv_rows_cuda, spmv_rows_plain, spmv_tiles,
     )
@@ -339,30 +381,58 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
         raise AssertionError("spmv out-edge ranges differ from the full sweep")
 
     ids = (torch.stack([g.src, g.dst]) % V).to(torch.int32)
+    packages = [ids[:, a : a + PACKAGE_EDGES] for a in range(0, E, PACKAGE_EDGES)]
+    whole = ids[0, : E // PACKAGE_EDGES * PACKAGE_EDGES].reshape(-1, PACKAGE_EDGES)
+    one_id = (whole.amin(1) == whole.amax(1)).nonzero().flatten()
+    if one_id.numel() == 0:
+        raise AssertionError("no 16 Ki-edge package whose src row is one id")
+    hub = int(one_id[0]) * PACKAGE_EDGES
+    log(f"degree_count: {len(packages)} packages of {PACKAGE_EDGES} edges, {one_id.numel()} with one src id")
     dc_err = 0
-    for c, table in ((V, ids), (1_000_003, (torch.stack([g.src, g.dst]) % 1_000_003).to(torch.int32))):
-        for a, b in ((0, E), (E // 3, E // 2)):
-            got = degree_count_cuda(table[:, a:b], torch.zeros(c, dtype=torch.int32, device=dev))
-            want = degree_count_plain(table[:, a:b], torch.zeros(c, dtype=torch.int32, device=dev))
+    odd = E // 3 + 1
+    cases = [(V, ids, 0, E), (V, ids, E // 3, E // 2), (V, ids, hub, hub + PACKAGE_EDGES),
+             (V, ids, odd, odd + 3 * PACKAGE_EDGES + 5)]
+    table = (torch.stack([g.src, g.dst]) % 1_000_003).to(torch.int32)
+    cases += [(1_000_003, table, 0, E), (1_000_003, table, E // 3, E // 2)]
+    for c, table, a, b in cases:  # the wrapper's choice, then each kernel forced
+        want = degree_count_plain(table[:, a:b], torch.zeros(c, dtype=torch.int32, device=dev))
+        for path in (None, *DC_PATHS):
+            counts = torch.zeros(c, dtype=torch.int32, device=dev)
+            got = degree_count_cuda(table[:, a:b], counts) if path is None else _degree_count_variant(
+                table[:, a:b], counts, path)
             err = int((got - want).abs().max())
             dc_err = max(dc_err, err)
             if err != 0:
-                raise AssertionError(f"degree_count C={c} edges [{a}, {b}) differs from plain by {err}")
-            log(f"degree_count C={c} edges [{a}, {b}) ok: max |kernel - plain| = {err}")
+                raise AssertionError(f"degree_count ({path or 'dispatch'}) C={c} edges [{a}, {b}) "
+                                     f"differs from plain by {err}")
+        log(f"degree_count C={c} edges [{a}, {b}) ({_degree_count_path(b - a, 2)} by dispatch; "
+            f"{', '.join(DC_PATHS)} forced) ok: max |kernel - plain| = 0")
+    del table
+    # the module's entry point over the whole graph (the private kernel, by
+    # its size) against the numpy oracle
+    dc_ref = alg.degree_count_reference(g.src.cpu().numpy(), g.dst.cpu().numpy(), V)
+    before = dict(degree_count_cuda.launches_by_path)
+    if not np.array_equal(degree_count_ops(g.src, g.dst, V).cpu().numpy(), dc_ref):
+        raise AssertionError("ops.degree_count over the whole graph differs from the oracle")
+    took = [k for k, n in degree_count_cuda.launches_by_path.items() if n > before[k]]
+    log(f"ops.degree_count over the whole graph ({took} kernel) equals the numpy oracle")
     del pr, slab
 
     # 4. main path ---------------------------------------------------------
     spmv_rows_cuda.launches = 0
     degree_count_cuda.launches = 0
+    degree_count_cuda.launches_by_path = dict.fromkeys(degree_count_cuda.launches_by_path, 0)
     rep, made, wall = run_mix(core, alg, g, "cuda")
     launches = {"spmv": spmv_rows_cuda.launches, "degree_count": degree_count_cuda.launches}
-    log(f"main path (cuda backend): {wall:.2f} s wall, launches {launches}, "
+    dc_by_path = dict(degree_count_cuda.launches_by_path)
+    log(f"main path (cuda backend): {wall:.2f} s wall, launches {launches} (degree_count {dc_by_path}), "
         f"fused packages {rep.total_fused}, stolen {rep.total_stolen}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"main path never launched the {name} kernel")
+    if dc_by_path["runs"] <= 0:  # the path's launches (<= 2 x 16 Ki ids) take the runs kernel
+        raise AssertionError("main path never launched the degree-count runs kernel")
     pr_ref = alg.pagerank_reference(g, iters=PR_ITERS)
-    dc_ref = alg.degree_count_reference(g.src.cpu().numpy(), g.dst.cpu().numpy(), V)
     for ex in made:
         res = ex.result()
         if isinstance(ex, alg.BFSExecutor):
@@ -408,7 +478,7 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
     finally:
         spmv_ops.spmv_tiles = spmv_tiles
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     spmv_busy = sum(v for k, v in by_name.items() if "spmv" in k)
     bins = [x for x in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024) if x < T] + [T, T + 1]
     hist = {f"[{lo}, {hi})": int(n) for lo, hi, n in zip(bins, bins[1:], np.histogram(sizes, bins=bins)[0])}
@@ -419,7 +489,16 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
         "device_idle_share_of_main_wall": 1.0 - busy / (wall * 1e3),
         "spmv_device_ms": spmv_busy, "spmv_launches": len(sizes),
         "spmv_launch_tiles_histogram": hist, "spmv_launch_tiles_mean": float(np.mean(sizes)),
-        "top_kernels_ms": {k[:60]: v for k, v in top},
+        "top_kernels_ms": {short_kernel_name(k): v for k, v in top},
+        # the degree-count queries' device time: the kernel, and the int32
+        # passes around it (the backend's torch.zeros of the counters per
+        # range, the executor's _counters += counts; with any other int32
+        # fill or add of the path)
+        "degree_count": {
+            "kernel_ms": sum(v for k, v in by_name.items() if "degree_count" in k),
+            "int32_fill_ms": sum(v for k, v in by_name.items() if "FillFunctor<int>" in k),
+            "int32_add_ms": sum(v for k, v in by_name.items() if "add<int>" in k),
+        },
     }}))
 
     # 5. timing at the main path's shapes --------------------------------------
@@ -475,6 +554,14 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
         "slice_device_ms": slice_dev, "two_tile_device_ms": two_dev,
     }]
     counts = torch.zeros(V, dtype=torch.int32, device=dev)
+
+    def launch_packages():
+        for p in packages:
+            degree_count_cuda(p, counts)
+
+    per_package = device_ms_each(launch_packages, len(packages), "degree_count")
+    log(json.dumps({"degree_count_package_device_ms": per_package}))
+    counts.zero_()
     k_ms = time_ms(lambda: degree_count_cuda(ids, counts))
     p_ms = time_ms(lambda: degree_count_plain(ids, counts))
     flat = ids.reshape(-1)
@@ -483,8 +570,11 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
     kernels.append({
         "name": "degree_count", "route": "cuda", "source": "src/repro_torch/csrc/degree_count.cu",
         "replaces": "src/repro/kernels/degree_count/degree_count.py:64",
-        "launches": launches["degree_count"], "max_abs_err": float(dc_err),
+        "design": "runs of equal ids summed in a warp, one atomic per run; large launches through a "
+                  "shared-memory table",
+        "launches": launches["degree_count"], "launches_by_path": dc_by_path, "max_abs_err": float(dc_err),
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "package_device_ms_mean": per_package["mean_ms"], "package_device_ms_worst": per_package["worst_ms"],
     })
     return kernels
 

@@ -15,6 +15,12 @@ from repro_torch import core  # noqa: E402
 from repro_torch.graph import rmat_graph  # noqa: E402
 from repro_torch.kernels.attention import flash_attention_cuda, flash_attention_plain  # noqa: E402
 from repro_torch.kernels.degree_count import degree_count_cuda, degree_count_plain  # noqa: E402
+from repro_torch.kernels.degree_count.degree_count import (  # noqa: E402
+    PRIVATE_MIN_IDS,
+    _degree_count_path,
+    _degree_count_variant,
+    _lib as _degree_count_lib,
+)
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda, embedding_bag_plain  # noqa: E402
 from repro_torch.kernels.scoring import scoring_cuda, scoring_plain  # noqa: E402
 from repro_torch.kernels.scoring.scoring import (  # noqa: E402
@@ -143,6 +149,100 @@ def test_degree_count_kernel_matches_plain(cuda):
         assert degree_count_cuda.launches == before + 1
         want = degree_count_plain(table[:, 1000:150000], torch.zeros(c, dtype=torch.int32, device=cuda))
         assert torch.equal(got, want)
+
+
+# the wrapper's own choice, then each kernel forced, on its own grid and on
+# a grid cut short (so warps loop over steps and a block's table meets
+# more ids)
+DEGREE_COUNT_KERNELS = [None, ("runs", 0), ("runs", 3), ("private", 0), ("private", 2)]
+
+
+def _count(ids, c, kernel, dev):
+    counts = torch.zeros(c, dtype=torch.int32, device=dev)
+    before = degree_count_cuda.launches
+    if kernel is None:
+        degree_count_cuda(ids, counts)
+    else:
+        _degree_count_variant(ids, counts, *kernel)
+    assert degree_count_cuda.launches == before + (ids.numel() > 0)  # one launch a call
+    want = degree_count_plain(ids, torch.zeros(c, dtype=torch.int32, device=dev))
+    assert torch.equal(counts, want)
+
+
+def _sorted_table(dev, e=60000, v=5000, seed=21):
+    """[2, e] endpoint ids: src sorted with RMAT-like runs (a 16 Ki-edge
+    package of one id among them), dst unsorted and skewed."""
+    rng = np.random.default_rng(seed)
+    runs = rng.zipf(1.6, size=e).clip(1, 3000)
+    src = np.repeat(rng.integers(0, v, runs.shape[0]), runs)[:e]
+    src[20000:20000 + 16384] = 123
+    src = np.sort(src)
+    dst = (rng.zipf(1.4, size=e).clip(1, 10**6) * 7919) % v
+    return torch.from_numpy(np.stack([src, dst]).astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("kernel", DEGREE_COUNT_KERNELS)
+def test_degree_count_one_id_repeated(cuda, kernel):
+    for n in (100_000, 16384, 1, 255, 257):
+        _count(torch.full((n,), 7, dtype=torch.int32, device=cuda), 10, kernel, cuda)
+
+
+@pytest.mark.parametrize("kernel", DEGREE_COUNT_KERNELS)
+def test_degree_count_sorted_hub_package(cuda, kernel):
+    table = _sorted_table(cuda)
+    hub = int((table[0] == 123).nonzero()[0])
+    _count(table[:, hub : hub + 16384], 5000, kernel, cuda)
+    assert bool((table[0, hub : hub + 16384] == 123).all())
+    _count(table, 5000, kernel, cuda)
+
+
+@pytest.mark.parametrize("kernel", DEGREE_COUNT_KERNELS)
+def test_degree_count_padding_and_large_ids_interleaved(cuda, kernel):
+    rng = np.random.default_rng(22)
+    x = np.repeat(rng.choice([-1, 5, 6, 4095, 4096, 9999, 2**31 - 1], 5000), rng.integers(1, 30, 5000))
+    ids = torch.from_numpy(np.stack([x, x[::-1]]).astype(np.int32)).to(cuda)
+    _count(ids, 4096, kernel, cuda)
+
+
+@pytest.mark.parametrize("kernel", DEGREE_COUNT_KERNELS)
+def test_degree_count_row_slices_at_every_alignment(cuda, kernel):
+    """A slice may start at any id: each offset mod 4 (16 bytes), each
+    length mod 4, rows whose stride moves the alignment from row to row."""
+    table = _sorted_table(cuda)
+    for a in range(8):
+        for m in (1, 2, 3, 4, 255, 256, 1021):
+            _count(table[:, 1000 + a : 1000 + a + m], 5000, kernel, cuda)
+    odd = torch.from_numpy(np.random.default_rng(23).integers(0, 300, (3, 4097)).astype(np.int32)).to(cuda)
+    _count(odd[:, 1:], 300, kernel, cuda)  # row stride 4097: each row's head differs
+
+
+@pytest.mark.parametrize("kernel", DEGREE_COUNT_KERNELS)
+def test_degree_count_one_id_and_empty_rows(cuda, kernel):
+    table = _sorted_table(cuda)
+    _count(table[:, 5:6], 5000, kernel, cuda)
+    _count(table[:1, 17:18], 5000, kernel, cuda)
+    _count(table[:, 7:7], 5000, kernel, cuda)
+    _count(table[:0], 5000, kernel, cuda)
+
+
+@pytest.mark.parametrize("kernel", DEGREE_COUNT_KERNELS)
+def test_degree_count_counters_not_a_power_of_two(cuda, kernel):
+    rng = np.random.default_rng(24)
+    src = np.sort(rng.integers(0, 3_000_000, 200_000))
+    ids = torch.from_numpy((np.stack([src, rng.permutation(src)]) % 1_000_003).astype(np.int32)).to(cuda)
+    _count(ids, 1_000_003, kernel, cuda)
+    _count(ids[:, 3:150_001], 1_000_003, kernel, cuda)
+
+
+def test_degree_count_path_rule_matches_the_source(cuda):
+    lib = _degree_count_lib()
+    for n, rows in ((PRIVATE_MIN_IDS, 1), (PRIVATE_MIN_IDS // 2, 2), (PRIVATE_MIN_IDS // 2 - 1, 2), (16384, 2)):
+        assert lib.degree_count_path(n, rows) == {"runs": 0, "private": 1}[_degree_count_path(n, rows)]
+    ids = torch.zeros(2, PRIVATE_MIN_IDS // 2, dtype=torch.int32, device=cuda)
+    before = dict(degree_count_cuda.launches_by_path)
+    degree_count_cuda(ids, torch.zeros(4, dtype=torch.int32, device=cuda))
+    degree_count_cuda(ids[:, :16384], torch.zeros(4, dtype=torch.int32, device=cuda))
+    assert degree_count_cuda.launches_by_path == {k: v + 1 for k, v in before.items()}
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):

@@ -17,6 +17,7 @@ from repro_torch.kernels.degree_count import (  # noqa: E402
     degree_count_cuda,
     degree_count_ref,
 )
+from repro_torch.kernels.degree_count.degree_count import PRIVATE_MIN_IDS, _degree_count_path  # noqa: E402
 from repro_torch.graph import rmat_edges  # noqa: E402
 from repro_torch.kernels.spmv import (  # noqa: E402
     BLOCK_EDGES,
@@ -248,6 +249,157 @@ def test_degree_count_two_row_column_slice():
     got = count_into(table[:, 700:2100], torch.zeros(500, dtype=torch.int32))
     want = np.bincount(table[:, 700:2100].numpy().ravel(), minlength=500)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _degree_count_source() -> str:
+    from pathlib import Path
+
+    import repro_torch
+
+    return (Path(repro_torch.__file__).parent / "csrc" / "degree_count.cu").read_text()
+
+
+def _source_int(name: str) -> int:
+    """The value of ``constexpr <type> name = <expression>;`` in
+    csrc/degree_count.cu (integers, other such constants, ``*`` and ``<<``)."""
+    import re
+
+    found = re.findall(rf"constexpr \w+ {name} = ([^;]+);", _degree_count_source())
+    assert len(found) == 1, name
+    expr = found[0].replace("int64_t{1}", "1")
+    for other in set(re.findall(r"\bk[A-Z]\w*", expr)):
+        expr = re.sub(rf"\b{other}\b", str(_source_int(other)), expr)
+    assert re.fullmatch(r"[\d\s*<]+", expr), expr
+    return int(eval(expr))
+
+
+def _ids_per_lane(kernel: str) -> int:
+    """Ids a lane takes per warp step in the ``runs`` or ``private``
+    kernel: four per 16-byte load."""
+    return 4 * _source_int(f"k{kernel.title()}Vecs")
+
+
+def _warp_runs(row: np.ndarray, head: int, k_ids: int):
+    """(ids, lengths) of the runs the kernel's warp steps emit for one row
+    whose first id sits ``head`` ids past a 16-byte boundary, in step order:
+    lane-major steps of 32 lanes of ``k_ids`` positions; run starts flagged
+    inside each lane and against the previous lane's last id (the shuffle
+    up); a suffix min over the lanes (the shuffles down) gives each lane the
+    next run start after it; each run's length runs to it."""
+    step_ids = 32 * k_ids
+    steps = -(-(row.shape[0] + 3) // step_ids)
+    virt = np.full(steps * step_ids, -1, np.int64)
+    virt[head : head + row.shape[0]] = row
+    x = virt.reshape(steps, 32, k_ids)
+    starts = np.empty(x.shape, bool)
+    starts[:, 1:, 0] = x[:, 1:, 0] != x[:, :-1, -1]
+    starts[:, 0, 0] = True
+    starts[:, :, 1:] = x[:, :, 1:] != x[:, :, :-1]
+    base = np.arange(32) * k_ids
+    first = np.where(starts.any(2), base + starts.argmax(2), step_ids)
+    suffix = np.minimum.accumulate(first[:, ::-1], axis=1)[:, ::-1]
+    end = np.concatenate([suffix[:, 1:], np.full((steps, 1), step_ids)], axis=1)
+    ids, lens, order = [], [], []
+    for k in reversed(range(k_ids)):
+        m = starts[:, :, k]
+        ids.append(x[:, :, k][m])
+        lens.append((end - (base + k))[m])
+        order.append((np.arange(steps)[:, None] * step_ids + base + k)[m])
+        end = np.where(m, base + k, end)
+    o = np.argsort(np.concatenate(order), kind="stable")
+    assert np.concatenate(lens).sum() == steps * step_ids  # the runs tile the steps
+    return np.concatenate(ids)[o], np.concatenate(lens)[o]
+
+
+def _emulate_degree_count(rows: np.ndarray, c: int, heads, log_slots: int | None = None):
+    """numpy emulation of csrc/degree_count.cu on ``rows`` ([r, n] ids):
+    returns (counts, global adds). ``log_slots=None`` is the runs kernel
+    (one add per run of an id in [0, c)); else the private kernel with one
+    block's table of 2**log_slots slots, ``kProbes`` linear probes from the
+    source's multiplicative hash, overflow added straight away and one
+    flush add per occupied slot."""
+    counts = np.zeros(c, np.int64)
+    table: dict[int, int] = {}  # slot -> id
+    vals = np.zeros(1 << (log_slots or 0), np.int64)
+    adds = 0
+    probes = _source_int("kProbes")
+    k_ids = _ids_per_lane("runs" if log_slots is None else "private")
+    for row, head in zip(rows, heads):
+        ids, lens = _warp_runs(row, head, k_ids)
+        ok = (ids >= 0) & (ids < c)
+        if log_slots is None:
+            np.add.at(counts, ids[ok], lens[ok])
+            adds += int(ok.sum())
+            continue
+        for i, n in zip(ids[ok].tolist(), lens[ok].tolist()):
+            h = ((i * 2654435761) & 0xFFFFFFFF) >> (32 - log_slots)
+            for _ in range(probes):
+                if table.setdefault(h, i) == i:
+                    vals[h] += n
+                    break
+                h = (h + 1) & ((1 << log_slots) - 1)
+            else:
+                counts[i] += n
+                adds += 1
+    for h, i in table.items():
+        counts[i] += vals[h]
+        adds += 1
+    return counts.astype(np.int32), adds
+
+
+def _dc_inputs(kind: str, rng) -> tuple[np.ndarray, int]:
+    """[2, n] endpoint-like ids and the counter count for one input kind."""
+    if kind == "sorted":  # an RMAT-like sorted src row over a skewed dst row
+        src, dst = rmat_edges(12, 8, seed=5)
+        order = np.argsort(src, kind="stable")
+        return np.stack([src[order], dst[order]]).astype(np.int32)[:, 3000:23000], 4096
+    if kind == "hub_runs":  # a package of one id, then runs of 1..700
+        run = np.repeat(rng.integers(0, 3000, 60), rng.integers(1, 700, 60))
+        return np.stack([np.concatenate([np.full(16384, 77), run]),
+                         rng.integers(0, 3000, 16384 + run.shape[0])]).astype(np.int32), 3000
+    if kind == "unsorted":
+        return rng.integers(0, 5000, (2, 9001)).astype(np.int32), 5000
+    if kind == "padded":  # -1 padding and ids >= C between runs
+        x = np.repeat(rng.integers(-1, 2300, 900), rng.integers(1, 40, 900))
+        return np.stack([x, rng.permutation(x)]).astype(np.int32), 2048
+    # ids mod C, sorted before the mod: runs broken where the mod wraps
+    x = np.sort(rng.integers(0, 50_000, 12_000))
+    return (np.stack([x, rng.permutation(x)]) % 1009).astype(np.int32), 1009
+
+
+@pytest.mark.parametrize("kind", ["sorted", "hub_runs", "unsorted", "padded", "mod_c"])
+def test_degree_count_warp_runs_emulation_matches_oracles(kind):
+    """The kernel's aggregation (runs inside a lane, across a warp of 32,
+    then one add per run; or a per-block shared table first), emulated in
+    numpy at every alignment of the row's start, equals both packages'
+    oracles, and a run costs at most one add per warp step it spans."""
+    ids, c = _dc_inputs(kind, np.random.default_rng(17))
+    valid = ids[(ids >= 0) & (ids < c)]
+    want = np.asarray(jax_degree_count_ref(jnp.asarray(ids.ravel()), c))
+    np.testing.assert_array_equal(degree_count_ref(torch.from_numpy(valid), c).numpy(), want)
+    n = ids.shape[1]
+    runs = 1 + int(np.count_nonzero(ids[:, 1:] != ids[:, :-1], axis=1).sum()) + 1
+    steps = 2 * -(-(n + 3) // (32 * _ids_per_lane("runs")))
+    for heads in ((0, 0), (1, 3), (2, 1), (3, 2)):
+        got, adds = _emulate_degree_count(ids, c, heads)
+        np.testing.assert_array_equal(got, want)
+        assert adds <= runs + steps
+        got, _ = _emulate_degree_count(ids, c, heads, log_slots=6)  # a small table that overflows
+        np.testing.assert_array_equal(got, want)
+    if kind == "hub_runs":  # the package of one id: one add per warp step
+        _, adds = _emulate_degree_count(ids[:1, :16384], c, (0,))
+        assert adds == 16384 // (32 * _ids_per_lane("runs"))
+
+
+def test_degree_count_constants_and_path_match_kernel_source():
+    """The wrapper's kernel choice is the source's, and the source's step
+    geometry is the one the emulation reads (four ids per 16-byte load)."""
+    assert "static constexpr int kIdsPerLane = 4 * kVecs;" in _degree_count_source()
+    assert _source_int("kPrivateMinIds") == PRIVATE_MIN_IDS
+    assert "return n * rows >= kPrivateMinIds ? kPrivate : kRuns;" in _degree_count_source()
+    for n, rows in ((PRIVATE_MIN_IDS, 1), (PRIVATE_MIN_IDS // 2, 2), (PRIVATE_MIN_IDS // 2 - 1, 2), (16384, 2)):
+        want = "private" if n * rows >= PRIVATE_MIN_IDS else "runs"
+        assert _degree_count_path(n, rows) == want
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
