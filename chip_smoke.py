@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-It needs one CUDA device and runs the port's three paths at full size:
-the graph engine at RMAT scale 20, the two-tower retrieval server at the
-full width of ``make_config()`` (18.54 GB of tables), and TinyLlama-1.1B
-serving at full width and depth. For a quick check at small sizes run
-``tests/test_torch_cuda.py``. Phases, each raising on failure:
+It needs one CUDA device and runs the port's paths at full size: the
+graph engine at RMAT scale 20, on the SNAP surrogates at the SNAP graphs'
+own sizes and under live edge ingest at RMAT scale 20, the two-tower
+retrieval server at the full width of ``make_config()`` (18.54 GB of
+tables), and TinyLlama-1.1B serving at full width and depth. For a quick
+check at small sizes run ``tests/test_torch_cuda.py``. Phases, each raising
+on failure:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
 2. build — all five CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
@@ -30,7 +32,30 @@ serving at full width and depth. For a quick check at small sizes run
    main path's spmv launches by size in tiles (from its profiled run); for
    degree_count also the device time of each of the 1,024 16 Ki-edge
    packages launched alone (the main path's launch shape: mean and worst);
-6. retrieval server — with the RMAT graph freed: a 2^20-candidate corpus
+6. real-size data sets — with the RMAT graph freed: ``soc-LiveJournal1``
+   (4,194,304 vertices, 67,108,864 edges) and ``roadNet-CA`` (1,962,801,
+   7,845,600) from ``load_dataset(name, scale_div=1)`` on the card; on
+   each, fig12's PageRank-pull mix and fig13's BFS mix (8 sessions,
+   ``policy="scheduler"``, stealing on) through the ``cuda`` backend, every
+   result equal to its oracle, the modeled numbers equal to the
+   ``modeled`` backend's, spmv launched; per run the wall, measured
+   edges/s, a profiled run's device busy and idle, spmv's device ms and
+   launches, and the peak memory. On LiveJournal also spmv's full in-edge
+   sweep against its plain version (timed beside it) and
+   ``ops.degree_count`` of the whole graph against the numpy oracle;
+7. dynamic ingest — fig22's writer and readers at RMAT scale 20, seed 3:
+   the base snapshot holds the first 85% of the edge stream, a
+   ``GraphEpochLog`` publishes the rest in 6 batches while 8 reader
+   sessions of 2 queries run fig22's PR/BFS mix (pool 8, fusion and
+   stealing on, ``dynamic=True``) through the ``cuda`` backend. Every
+   record's epoch equals its executor's snapshot's, the readers spread over
+   two epochs or more, every reader equals its own snapshot's oracle, 6
+   epochs are published, the modeled numbers equal the same run on the
+   ``modeled`` backend (which first picks the cadence factor: 1 unless
+   fig22's cadence fails to spread the readers); each publish's host
+   seconds, each epoch's table build and the memory after each publish are
+   printed; the static variant (no writer) runs too;
+8. retrieval server — with the snapshots freed: a 2^20-candidate corpus
    through the item tower, then 8 requests at each of batch 1, 4, 64 and
    512 (user tower, then ``score_topk`` with k=128), every result held
    against plain PyTorch on the card, both kernels' launch counts > 0 and
@@ -39,7 +64,7 @@ serving at full width and depth. For a quick check at small sizes run
    latencies, a profile of one round, and the kernels' times at the
    server's shapes (scoring also at batch 16; EmbeddingBag also as the
    profiler's device time per call, with its kernel launches per call);
-7. LM serving — with the retrieval tables freed: TinyLlama-1.1B
+9. LM serving — with the retrieval tables freed: TinyLlama-1.1B
    (``configs/tinyllama_1_1b.py::make_config()``, bf16, random weights
    from the seed) prefills 8 prompts of 2048 tokens through the
    tensor-core flash-attention kernel (wgmma products fed by TMA, split-P;
@@ -54,7 +79,7 @@ serving at full width and depth. For a quick check at small sizes run
    ``prefill_32k``'s sequence (B=1, S=32768) in bf16, and at the served
    shape with B=2 in float32 (the CUDA-core kernel), each timed beside the
    plain version and ``scaled_dot_product_attention``;
-8. isolation — neither JAX nor the JAX package was imported.
+10. isolation — neither JAX nor the JAX package was imported.
 
 The kernels' times go out as one JSON line. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -80,6 +105,22 @@ SCALE, SEED = 20, 3  # RMAT scale 20: 1,048,576 vertices, 16,777,216 edges
 ALGOS = ("pr_pull",) * 6 + ("bfs",) * 4 + ("degree_count",) * 2
 POOL, HOLD_NS, MAX_MEMBERS = 16, 5e4, 12
 PR_ITERS = 5
+
+# the real-size data sets: fig12's PageRank-pull and fig13's BFS session
+# mixes (benchmarks/fig12_pr_sessions_real.py, fig13_bfs_sessions_real.py)
+# on the SNAP surrogates at the SNAP graphs' own sizes (name -> scale_div)
+DATASETS = {"soc-LiveJournal1": 1, "roadNet-CA": 1}
+REAL_MIXES = ("pr_pull", "bfs")
+REAL_SESSIONS = 8
+# fig22's live ingest (benchmarks/fig22_dynamic.py) at RMAT scale 20: the
+# base holds the first 85% of the edge stream, the rest arrives in 6 batches
+# every INTERVAL_NS while 8 reader sessions of 2 queries arrive
+# ARRIVAL_GAP_NS apart (both modeled ns)
+DYN_SCALE, DYN_SEED = 20, 3
+DYN_POOL, DYN_SESSIONS, DYN_QUERIES = 8, 8, 2
+DYN_ALGOS = ("pr_pull", "bfs", "pr_push", "bfs", "pr_pull", "bfs", "pr_pull", "bfs")
+BASE_FRACTION, N_BATCHES = 0.85, 6
+INTERVAL_NS, ARRIVAL_GAP_NS = 6e5, 4.5e5
 
 # f32 sums of the same positive terms in another order (warp tree vs the
 # plain version's atomic adds): relative error grows like sqrt(row length)
@@ -207,30 +248,56 @@ def device_time_by_kernel(run) -> tuple[dict[str, float], float]:
     return by_name, wall
 
 
-def device_ms_per_call(fn, calls: int = TIMED_PER_BATCH) -> tuple[float, int]:
+def device_time_from_trace(run) -> tuple[dict[str, float], float]:
+    """``device_time_by_kernel`` for runs of up to ~10^6 launches (the road
+    graph's BFS): the device activity alone is traced, and each device
+    event's duration summed straight from the profiler's raw trace, without
+    building its tree of events, which takes minutes at that size."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict[str, float] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + (e.end_ns() - e.start_ns()) / 1e6
+    return by_name, wall
+
+
+def device_ms_per_call(fn, calls: int = TIMED_PER_BATCH, tries: int = 3) -> tuple[float, int]:
     """Device time (ms) and kernel launches per call of ``fn``, from
     torch.profiler over ``calls`` back-to-back calls after one warm-up: the
     device's own time, free of the host's launch rate that CUDA events
     around back-to-back calls may measure instead. The profiler can miss a
     few events of a window (a later profile in a process has lost up to 3
     of 20), so each kernel counts as its mean over the events seen, times
-    its launches per call rounded."""
+    its launches per call rounded. It has also lost a whole window once (no
+    device event at all, in the retrieval phase of a run), so a window
+    without device events is profiled again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ms, launches = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation or e.self_device_time_total <= 0:
-            continue
-        per_call = max(round(e.count / calls), 1)
-        ms += e.self_device_time_total / 1e3 / e.count * per_call
-        launches += per_call
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ms, launches = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.is_user_annotation or e.self_device_time_total <= 0:
+                continue
+            per_call = max(round(e.count / calls), 1)
+            ms += e.self_device_time_total / 1e3 / e.count * per_call
+            launches += per_call
+        if launches:
+            break
     return ms, launches
 
 
@@ -579,9 +646,375 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
     return kernels
 
 
+class Oracles:
+    """The numpy oracles of one graph, each computed once: BFS levels by
+    source, PageRank ranks by iteration count."""
+
+    def __init__(self, alg, graph):
+        self.alg, self.graph = alg, graph
+        self.bfs: dict[int, np.ndarray] = {}
+        self.pr: dict[int, np.ndarray] = {}
+
+    def check(self, ex, what: str) -> None:
+        alg = self.alg
+        if isinstance(ex, alg.BFSExecutor):
+            if ex.source not in self.bfs:
+                self.bfs[ex.source] = alg.bfs_reference(self.graph, ex.source)
+            if not np.array_equal(ex.result(), self.bfs[ex.source]):
+                raise AssertionError(f"{what}: BFS from {ex.source} differs from the oracle")
+            return
+        if ex._iter != PR_ITERS:
+            raise AssertionError(f"{what}: PageRank ran {ex._iter} iterations")
+        if ex._iter not in self.pr:
+            self.pr[ex._iter] = alg.pagerank_reference(self.graph, iters=ex._iter)
+        np.testing.assert_allclose(ex.result(), self.pr[ex._iter], rtol=PR_RTOL, atol=PR_ATOL, err_msg=what)
+
+
+def hub_sources(graph) -> np.ndarray:
+    """Vertex ids by descending out-degree (benchmarks/common.py::make_executor's
+    BFS sources)."""
+    return np.argsort(-graph.out_degrees().cpu().numpy())
+
+
+def run_real_mix(core, alg, graph, algorithm: str, backend):
+    """fig12's (PageRank-pull) or fig13's (BFS) run on one data set:
+    REAL_SESSIONS sessions of one query each, as
+    benchmarks/common.py::run_sessions sets them (policy "scheduler",
+    stealing on, the engine's default pool)."""
+    hubs = hub_sources(graph)
+    made = []
+
+    def mk(s, q):
+        if algorithm == "bfs":
+            ex = alg.BFSExecutor(graph, int(hubs[s % 8]))
+        else:
+            ex = alg.PageRankExecutor(graph, mode="pull", max_iters=PR_ITERS, tol=0)
+        made.append(ex)
+        return ex
+
+    eng = core.MultiQueryEngine(core.XEON_E5_2660V4, policy="scheduler")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = eng.run_sessions(mk, sessions=REAL_SESSIONS, queries_per_session=1,
+                           config=core.EngineConfig(steal=True, backend=backend))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if eng.pool.available != eng.pool.capacity:
+        raise AssertionError("worker grants leaked")
+    return rep, made, wall
+
+
+def hold_kernels_at_scale(alg, g, bw: float) -> dict:
+    """spmv over the graph's full in-edge sweep against its plain version
+    (and timed beside it, one PyTorch sparse product and its bound), and
+    ``ops.degree_count`` of the whole graph against the numpy oracle."""
+    from repro_torch.kernels.degree_count import degree_count as degree_count_ops
+    from repro_torch.kernels.spmv import DST_TILE, build_tiles, spmv_rows_plain, spmv_tiles
+
+    V, E = g.num_vertices, g.num_edges
+    pr = alg.PageRankExecutor(g, mode="pull", max_iters=1, tol=0)
+    pr.start()
+    in_src, in_dst = pr.pull_edges()
+    t_in = build_tiles(in_src, in_dst, V)
+    T, contrib = t_in.n_tiles, pr.contrib
+    got = spmv_tiles(t_in, contrib, 0, T).reshape(-1)[:V]
+    want = spmv_rows_plain(t_in.row_ptr[: V + 1], t_in.src, contrib)
+    # The same float32 terms summed in float64: exact to ~1e-16. Any order of
+    # float32 additions of n nonnegative terms lies within gamma(n - 1) =
+    # (n - 1)u / (1 - (n - 1)u), u = 2^-24, of their exact sum, relative; the
+    # kernel and the plain version each do, so they lie within twice that of
+    # each other, row by row. LiveJournal's in-rows run longer than sf20's,
+    # past where the sf20 phase's flat SPMV_RTOL holds for any order.
+    exact = spmv_rows_plain(t_in.row_ptr[: V + 1], t_in.src, contrib.double())
+    nu = (t_in.row_ptr[1 : V + 1] - t_in.row_ptr[:V] - 1).clamp(min=0).double() * 2.0**-24
+    tol = 2 * nu / (1 - nu) * exact + SPMV_ATOL
+    diff = (got.double() - want.double()).abs()
+    if not bool((diff <= tol).all()):
+        i = int((diff - tol).argmax())
+        raise AssertionError(f"spmv at {g.name}'s in-sweep: row {i} differs from the plain version by "
+                             f"{float(diff[i]):.3e}, past the float32 bound {float(tol[i]):.3e}")
+    err = float(diff.max())
+    pos = exact > 0
+    rel = {k: float(((x.double() - exact).abs()[pos] / exact[pos]).max()) for k, x in (("kernel", got), ("plain", want))}
+    worst = int((diff / tol).argmax())
+    k_ms = time_ms(lambda: spmv_tiles(t_in, contrib, 0, T))
+    p_ms = time_ms(lambda: spmv_rows_plain(t_in.row_ptr, t_in.src, contrib))
+    csr = torch.sparse_csr_tensor(
+        t_in.row_ptr[: V + 1], t_in.src.to(torch.int64),
+        torch.ones(E, dtype=torch.float32, device=contrib.device), size=(V, V),
+    )
+    col = contrib.unsqueeze(1)
+    lib_ms = time_ms(lambda: csr.matmul(col))
+    b_ms, b_by = bound_ms(E * 4 + t_in.row_ptr.numel() * 8 + V * 4 + T * DST_TILE * 4, E, bw)
+    spmv = {"edges": E, "tiles": T, "max_abs_err": err, "max_rel_err_vs_float64": rel,
+            "longest_row": int((t_in.row_ptr[1:] - t_in.row_ptr[:-1]).max()),
+            "diff_over_bound_worst": float(diff[worst] / tol[worst]),
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"spmv at {g.name}'s full in-edge sweep ({E} edges): max |kernel - plain| = {err:.3e}, every row "
+        f"within the float32 bound (worst at {spmv['diff_over_bound_worst']:.3f} of it); largest relative "
+        f"error against float64 {rel}; {k_ms:.3f} ms (plain {p_ms:.3f}, sparse CSR product {lib_ms:.3f}, "
+        f"bound {b_ms:.3f} by {b_by})")
+    del csr, col, got, want, exact, nu, tol, diff, t_in, pr
+    t0 = time.perf_counter()
+    want_dc = alg.degree_count_reference(g.src.cpu().numpy(), g.dst.cpu().numpy(), V)
+    oracle_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_dc = degree_count_ops(g.src, g.dst, V)
+    torch.cuda.synchronize()
+    dc_s = time.perf_counter() - t0
+    if not np.array_equal(got_dc.cpu().numpy(), want_dc):
+        raise AssertionError(f"ops.degree_count over {g.name} differs from the numpy oracle")
+    log(f"ops.degree_count over {g.name}'s {2 * E} endpoint ids equals the numpy oracle ({dc_s * 1e3:.1f} ms "
+        f"wall; the oracle {oracle_s:.1f} s)")
+    return {"spmv_in_sweep": spmv, "degree_count_whole_graph": {"ids": 2 * E, "max_abs_err": 0, "wall_ms": dc_s * 1e3}}
+
+
+def datasets_path(dev: torch.device, bw: float) -> tuple[dict, dict]:
+    """Phase 6: fig12's PageRank-pull and fig13's BFS mixes through the
+    ``cuda`` backend on each SNAP surrogate at its full size. Every result
+    is held against its numpy oracle, the modeled numbers against the same
+    run on the ``modeled`` backend; a third, profiled run gives the device's
+    busy time. Returns spmv's launches per run and the kernels' holds at
+    LiveJournal's size."""
+    from repro_torch import algorithms as alg
+    from repro_torch import core
+    from repro_torch.graph import load_dataset
+    from repro_torch.kernels.spmv import spmv_rows_cuda
+
+    launches: dict[str, int] = {}
+    held: dict = {}
+    for name, div in DATASETS.items():
+        t0 = time.perf_counter()
+        g = load_dataset(name, scale_div=div, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        arrays = (g.csr.indptr, g.csr.indices, g.csr_in.indptr, g.csr_in.indices, g.src, g.dst)
+        nbytes = sum(t.numel() * t.element_size() for t in arrays)
+        log(f"dataset {name} (scale_div {div}, surrogate {g.surrogate}): V={g.num_vertices} E={g.num_edges}, "
+            f"{nbytes / 1e9:.3f} GB of int32 graph arrays on the card, built in {build_s:.1f} s")
+        if name == "soc-LiveJournal1":
+            held = hold_kernels_at_scale(alg, g, bw)
+        oracles = Oracles(alg, g)
+        for mix in REAL_MIXES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            spmv_rows_cuda.launches = 0
+            rep, made, wall = run_real_mix(core, alg, g, mix, "cuda")
+            n_spmv = spmv_rows_cuda.launches
+            peak = torch.cuda.max_memory_allocated()
+            if n_spmv <= 0:
+                raise AssertionError(f"{name}/{mix}: the run never launched the spmv kernel")
+            launches[f"{name}/{mix}"] = n_spmv
+            t0 = time.perf_counter()
+            for ex in made:
+                oracles.check(ex, f"{name}/{mix}")
+            oracle_s = time.perf_counter() - t0
+            mrep, _, mwall = run_real_mix(core, alg, g, mix, "modeled")
+            if (rep.throughput_modeled(), rep.makespan_modeled_ns) != (
+                mrep.throughput_modeled(), mrep.makespan_modeled_ns
+            ):
+                raise AssertionError(f"{name}/{mix}: modeled numbers differ from the modeled backend's run")
+            del made, mrep
+            t0 = time.perf_counter()
+            by_name, pwall = device_time_from_trace(lambda: run_real_mix(core, alg, g, mix, "cuda"))
+            profile_s = time.perf_counter() - t0
+            busy = sum(by_name.values())
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            log(json.dumps({"dataset_run": {
+                "dataset": name, "scale_div": div, "mix": mix, "sessions": REAL_SESSIONS,
+                "wall_s": wall, "edges": rep.total_edges, "measured_edges_per_s": rep.total_edges / wall,
+                "throughput_modeled": rep.throughput_modeled(), "makespan_modeled_ns": rep.makespan_modeled_ns,
+                "iterations": [r.iterations for r in rep.records], "modeled_backend_wall_s": mwall,
+                "oracle_s": oracle_s, "max_memory_allocated_gb": peak / 1e9,
+                "spmv_launches": n_spmv, "spmv_device_ms": sum(v for k, v in by_name.items() if "spmv" in k),
+                "profiled_wall_s": pwall, "profile_with_processing_s": profile_s,
+                "device_busy_ms": busy, "device_idle_share": 1.0 - busy / (pwall * 1e3),
+                "top_kernels_ms": {short_kernel_name(k, 60): v for k, v in top},
+            }}))
+            del rep
+        del g, oracles, arrays
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, held
+
+
+def dynamic_path(dev: torch.device) -> dict:
+    """Phase 7: fig22's live ingest at RMAT scale DYN_SCALE. The base graph
+    holds the first BASE_FRACTION of the edge stream; a GraphEpochLog
+    publishes the rest in N_BATCHES batches on fig22's cadence while 8
+    reader sessions run its PR/BFS mix through the ``cuda`` backend, each
+    reader pinned to the snapshot it started on. Every reader is held
+    against its own snapshot's oracle, the modeled numbers against the same
+    run on the ``modeled`` backend; the static variant (no writer) runs too.
+    Returns spmv's launches in the dynamic run."""
+    from repro_torch import algorithms as alg
+    from repro_torch import core
+    from repro_torch.graph import GraphEpochLog, build_graph, rmat_edges
+    from repro_torch.kernels.spmv import spmv_rows_cuda
+
+    class TimedLog(GraphEpochLog):
+        """The epoch log, recording each publish's host seconds and the
+        card's allocated memory after it."""
+
+        def __init__(self, base):
+            super().__init__(base)
+            self.publish_s: list[float] = []
+            self.allocated_gb: list[float] = []
+
+        def publish(self):
+            before = self.epoch
+            t0 = time.perf_counter()
+            g = super().publish()
+            torch.cuda.synchronize()
+            if g.epoch != before:
+                self.publish_s.append(time.perf_counter() - t0)
+                self.allocated_gb.append(torch.cuda.memory_allocated() / 1e9)
+            return g
+
+    t0 = time.perf_counter()
+    src, dst = rmat_edges(DYN_SCALE, seed=DYN_SEED)
+    cut = int(src.size * BASE_FRACTION)
+    base = build_graph(src[:cut], dst[:cut], 1 << DYN_SCALE, name=f"sf{DYN_SCALE}_dyn", device=dev)
+    parts = np.array_split(np.arange(cut, src.size), N_BATCHES)
+    batches = [(src[i], dst[i]) for i in parts]
+    torch.cuda.synchronize()
+    log(f"dynamic: base sf{DYN_SCALE} snapshot of {base.num_edges} edges, {src.size - cut} held out in "
+        f"{N_BATCHES} batches of {[len(b[0]) for b in batches]}, built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    del src, dst
+    hubs_by_epoch: dict[int, np.ndarray] = {}
+
+    def run(dynamic: bool, backend, factor: float):
+        elog = TimedLog(base) if dynamic else None
+        stream = core.IngestStream(log=elog, batches=batches, interval_ns=INTERVAL_NS * factor) if dynamic else None
+        pinned = {}
+
+        def mk(s, q):
+            g = elog.current() if dynamic else base
+            kind = DYN_ALGOS[s]
+            if kind == "bfs":
+                if g.epoch not in hubs_by_epoch:
+                    hubs_by_epoch[g.epoch] = hub_sources(g)
+                ex = alg.BFSExecutor(g, int(hubs_by_epoch[g.epoch][s % 8]))
+            else:
+                ex = alg.PageRankExecutor(g, mode=kind.split("_")[1], max_iters=PR_ITERS, tol=0)
+            pinned[(s, q)] = ex
+            return ex
+
+        eng = core.MultiQueryEngine(core.XEON_E5_2660V4, pool_capacity=DYN_POOL, policy="scheduler")
+        cfg = core.EngineConfig(
+            steal=True, fuse=True, arrivals=[i * ARRIVAL_GAP_NS * factor for i in range(DYN_SESSIONS)],
+            dynamic=dynamic, ingest=stream, backend=backend,
+        )
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = eng.run_sessions(mk, sessions=DYN_SESSIONS, queries_per_session=DYN_QUERIES, config=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if eng.pool.available != eng.pool.capacity:
+            raise AssertionError("worker grants leaked")
+        return rep, pinned, elog, wall
+
+    def spread(rep, final_epoch: int) -> bool:
+        """fig22's check: readers on at least two epochs, one of them
+        before the last publish, and one started after a publish."""
+        epochs = {r.graph_epoch for r in rep.records}
+        return len(epochs) >= 2 and any(e < final_epoch for e in epochs) and any(e > 0 for e in epochs)
+
+    # readers pin their epochs by the modeled clock alone, so the modeled
+    # run shows whether fig22's cadence spreads them at this scale
+    factor = 1.0
+    while True:
+        mrep, _, mlog, mwall = run(True, "modeled", factor)
+        if spread(mrep, mlog.epoch):
+            break
+        factor *= 4
+        if factor > 4 ** 5:
+            raise AssertionError("no cadence factor spreads the readers over two epochs")
+    log(f"dynamic: cadence factor {factor:g} (interval {INTERVAL_NS * factor:g} ns, arrival gap "
+        f"{ARRIVAL_GAP_NS * factor:g} ns); modeled backend {mwall:.1f} s wall")
+
+    backend = core.CudaBackend()
+    builds: list[dict] = []
+    build_tables = backend._spmv_tables
+
+    def timed_tables(key, *args):
+        if key in backend._graph_tables:
+            return build_tables(key, *args)
+        t0 = time.perf_counter()
+        out = build_tables(key, *args)
+        torch.cuda.synchronize()
+        builds.append({"epoch": key[0][1], "direction": key[1], "s": time.perf_counter() - t0})
+        return out
+
+    backend._spmv_tables = timed_tables
+    torch.cuda.reset_peak_memory_stats()
+    spmv_rows_cuda.launches = 0
+    rep, pinned, dlog, wall = run(True, backend, factor)
+    n_spmv = spmv_rows_cuda.launches
+    if n_spmv <= 0:
+        raise AssertionError("the dynamic run never launched the spmv kernel")
+    if rep.epochs_published != N_BATCHES:
+        raise AssertionError(f"{rep.epochs_published} epochs published, not {N_BATCHES}")
+    for r in rep.records:
+        if r.graph_epoch != pinned[(r.session, r.query)].graph.epoch:
+            raise AssertionError(f"record s{r.session}q{r.query} stamped epoch {r.graph_epoch}, its "
+                                 f"executor ran on epoch {pinned[(r.session, r.query)].graph.epoch}")
+    if not spread(rep, dlog.epoch):
+        raise AssertionError("the readers did not spread over the epochs")
+    oracles: dict[int, Oracles] = {}
+    t0 = time.perf_counter()
+    for (s, q), ex in sorted(pinned.items()):
+        e = ex.graph.epoch
+        oracles.setdefault(e, Oracles(alg, ex.graph)).check(ex, f"dynamic reader s{s}q{q} on epoch {e}")
+    oracle_s = time.perf_counter() - t0
+    same = (
+        [(r.modeled_ns, r.graph_epoch, r.edges) for r in rep.records]
+        == [(r.modeled_ns, r.graph_epoch, r.edges) for r in mrep.records]
+        and (rep.throughput_modeled(), rep.makespan_modeled_ns, rep.ingest_events)
+        == (mrep.throughput_modeled(), mrep.makespan_modeled_ns, mrep.ingest_events)
+    )
+    if not same:
+        raise AssertionError("the dynamic run's modeled numbers differ from the modeled backend's")
+    tables = [h.tables for h in backend._graph_tables.values() if h.kind == "tables"]
+    table_gb = sum(t.row_ptr.numel() * 8 + t.src.numel() * 4 + t.blocks.numel() * 4 + t.scratch.numel() * 4
+                   for t in tables) / 1e9
+    dynamic = {
+        "scale": DYN_SCALE, "base_edges": base.num_edges, "final_edges": dlog.current().num_edges,
+        "cadence_factor": factor, "wall_s": wall, "edges": rep.total_edges,
+        "measured_edges_per_s": rep.total_edges / wall, "throughput_modeled": rep.throughput_modeled(),
+        "makespan_modeled_ns": rep.makespan_modeled_ns, "epochs_published": rep.epochs_published,
+        "reader_epochs": [[r.session, r.query, r.algorithm, r.graph_epoch] for r in rep.records],
+        "publish_host_s": dlog.publish_s, "allocated_gb_after_publish": dlog.allocated_gb,
+        "table_builds": builds, "table_cache_entries": len(tables), "table_cache_gb": table_gb,
+        "allocated_gb_at_end": torch.cuda.memory_allocated() / 1e9,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "spmv_launches": n_spmv, "oracle_s": oracle_s, "modeled_backend_wall_s": mwall,
+    }
+    log(json.dumps({"dynamic_run": dynamic}))
+    del rep, mrep, pinned, dlog, mlog, backend, tables
+    gc.collect()
+
+    srep, spinned, _, swall = run(False, "cuda", factor)
+    for (s, q), ex in sorted(spinned.items()):
+        oracles.setdefault(0, Oracles(alg, base)).check(ex, f"static reader s{s}q{q}")
+    if any(r.graph_epoch is not None for r in srep.records) or srep.epochs_published != 0:
+        raise AssertionError("the static variant stamped an epoch")
+    smrep, _, _, _ = run(False, "modeled", factor)
+    if (srep.throughput_modeled(), srep.makespan_modeled_ns) != (smrep.throughput_modeled(), smrep.makespan_modeled_ns):
+        raise AssertionError("the static variant's modeled numbers differ from the modeled backend's")
+    log(json.dumps({"dynamic_static_variant": {
+        "wall_s": swall, "edges": srep.total_edges, "measured_edges_per_s": srep.total_edges / swall,
+        "throughput_modeled": srep.throughput_modeled(), "makespan_modeled_ns": srep.makespan_modeled_ns,
+    }}))
+    return {"dynamic": n_spmv}
+
+
 @torch.no_grad()
 def retrieval_path(dev: torch.device, bw: float) -> list[dict]:
-    """Phase 6: the two-tower retrieval server at ``make_config()``'s full
+    """Phase 8: the two-tower retrieval server at ``make_config()``'s full
     width. Builds the 2^20-candidate corpus with the item tower, answers
     REQUESTS requests at each batch size (user tower, then ``score_topk``),
     holds every result against plain PyTorch on the card, and times both
@@ -829,7 +1262,7 @@ def token_agreement(tok_a: torch.Tensor, tok_p: torch.Tensor, logits_p: list, al
 
 @torch.no_grad()
 def lm_path(dev: torch.device, bw: float) -> list[dict]:
-    """Phase 7: TinyLlama-1.1B serving at full width and depth. Batched
+    """Phase 9: TinyLlama-1.1B serving at full width and depth. Batched
     prefill through the flash-attention kernel and greedy decode, the same
     prefill with the kernel's plain version, the continuous-batching engine,
     the kernel against its plain version at the served and prefill_32k
@@ -1111,23 +1544,43 @@ def main() -> int:
                 log(f"  {name}: {line.strip()[:200]}")
 
     # 3-5. the graph engine: kernels, main path, timing -----------------------
+    t0 = time.perf_counter()
     kernels = graph_path(dev, bw)
     gc.collect()
-    torch.cuda.empty_cache()  # the RMAT graph is gone; the retrieval tables need the room
+    torch.cuda.empty_cache()  # the RMAT graph is gone; the data sets need the room
+    log(f"graph phase: {time.perf_counter() - t0:.1f} s")
 
-    # 6. the retrieval server at full width ---------------------------------------
+    # 6. the SNAP surrogates at full size ------------------------------------------
+    t0 = time.perf_counter()
+    real_launches, held = datasets_path(dev, bw)
+    log(f"datasets phase: {time.perf_counter() - t0:.1f} s")
+
+    # 7. dynamic ingest at RMAT scale 20 ----------------------------------------------
+    t0 = time.perf_counter()
+    dyn_launches = dynamic_path(dev)
+    gc.collect()
+    torch.cuda.empty_cache()  # the snapshots are gone; the retrieval tables need the room
+    log(f"dynamic phase: {time.perf_counter() - t0:.1f} s")
+    spmv = next(k for k in kernels if k["name"] == "spmv")
+    spmv["launches_by_phase"] = {"rmat_sf20_fig20": spmv["launches"], **real_launches, **dyn_launches}
+    spmv["max_abs_err"] = max(spmv["max_abs_err"], held["spmv_in_sweep"]["max_abs_err"])
+    spmv["livejournal_in_sweep"] = held["spmv_in_sweep"]
+    dc = next(k for k in kernels if k["name"] == "degree_count")
+    dc["livejournal_whole_graph"] = held["degree_count_whole_graph"]
+
+    # 8. the retrieval server at full width ---------------------------------------
     t0 = time.perf_counter()
     kernels += retrieval_path(dev, bw)
     log(f"retrieval phase: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()  # the retrieval tables are gone; the LM needs the room
 
-    # 7. LM serving at full width ----------------------------------------------------
+    # 9. LM serving at full width ----------------------------------------------------
     t0 = time.perf_counter()
     kernels += lm_path(dev, bw)
     log(f"lm phase: {time.perf_counter() - t0:.1f} s")
 
-    # 8. isolation -------------------------------------------------------------
+    # 10. isolation -------------------------------------------------------------
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     if leaked:
         raise AssertionError(f"imported the JAX side: {leaked}")

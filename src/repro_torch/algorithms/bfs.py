@@ -30,24 +30,35 @@ NOT_VISITED = -1
 # ---------------------------------------------------------------------------
 
 def bfs_reference(graph: Graph, source: int, max_iters: int | None = None) -> np.ndarray:
-    """Level array via dense edge-centric BFS (oracle; no scheduling)."""
+    """Level array via level-synchronous BFS over the out-CSR (oracle; no
+    scheduling). Each level gathers the out-edges of the frontier's
+    vertices alone and keeps one copy of each newly reached vertex without
+    a sort, so a level costs its frontier's edges, not ``|E|``: a road
+    graph's thousands of levels and a power-law graph's huge middle levels
+    both stay cheap at full size."""
     v = graph.num_vertices
+    indptr = graph.csr.indptr.cpu().numpy().astype(np.int64)
+    indices = graph.csr.indices.cpu().numpy()
     level = np.full(v, -1, dtype=np.int32)
     level[source] = 0
-    frontier = np.zeros(v, dtype=bool)
-    frontier[source] = True
-    src = graph.src.cpu().numpy()
-    dst = graph.dst.cpu().numpy()
+    owner = np.empty(v, dtype=np.int64)  # scratch: one slot per vertex
+    frontier = np.array([source], dtype=np.int64)
     depth = 0
     limit = max_iters or v
-    while frontier.any() and depth < limit:
+    while frontier.size and depth < limit:
         depth += 1
-        active = frontier[src]
-        touched = np.zeros(v, dtype=bool)
-        np.logical_or.at(touched, dst[active], True)
-        new = touched & (level < 0)
-        level[new] = depth
-        frontier = new
+        starts = indptr[frontier]
+        counts = indptr[frontier + 1] - starts
+        # every out-edge of the frontier: row start + offset within the row
+        ends = np.cumsum(counts)
+        edge = np.repeat(starts - (ends - counts), counts) + np.arange(ends[-1])
+        reached = indices[edge]
+        reached = reached[level[reached] < 0].astype(np.int64)
+        # one position per distinct vertex survives: the one its slot names
+        pos = np.arange(reached.size)
+        owner[reached] = pos
+        frontier = reached[owner[reached] == pos]
+        level[frontier] = depth
     return level
 
 

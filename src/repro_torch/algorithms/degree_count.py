@@ -25,10 +25,9 @@ PACKAGE_EDGES = 16 * 1024  # §5.1: non-overlapping parts of 16k edges
 
 
 def degree_count_reference(src: np.ndarray, dst: np.ndarray, num_counters: int) -> np.ndarray:
-    counts = np.zeros(num_counters, dtype=np.int32)
-    np.add.at(counts, np.asarray(src) % num_counters, 1)
-    np.add.at(counts, np.asarray(dst) % num_counters, 1)
-    return counts
+    counts = np.bincount(np.asarray(src) % num_counters, minlength=num_counters)
+    counts += np.bincount(np.asarray(dst) % num_counters, minlength=num_counters)
+    return counts.astype(np.int32)
 
 
 def _count_range(src, dst, counters, lo: int, hi: int, *, num_counters: int) -> int:

@@ -44,8 +44,7 @@ def pagerank_reference(
     rank = np.full(v, 1.0 / v)
     for _ in range(iters):
         contrib = np.where(out_deg > 0, rank / np.maximum(out_deg, 1), 0.0)
-        acc = np.zeros(v)
-        np.add.at(acc, dst, contrib[src])
+        acc = np.bincount(dst, weights=contrib[src], minlength=v)
         dangling = rank[out_deg == 0].sum()
         rank = (1 - damping) / v + damping * (acc + dangling / v)
     return rank

@@ -53,7 +53,7 @@ class AlgorithmDescriptor:
 
 # ---------------------------------------------------------------------------
 # Descriptors for the evaluated algorithms. Counts were obtained by counting
-# the ops of the corresponding lambdas in repro.algorithms (see each module's
+# the ops of the corresponding lambdas in repro_torch.algorithms (see each module's
 # docstring for the count audit).
 # ---------------------------------------------------------------------------
 

@@ -93,7 +93,7 @@ STEAL_CHUNK = 4
 
 
 class QueryExecutor(Protocol):
-    """One in-flight query. Implemented by repro.algorithms.*."""
+    """One in-flight query. Implemented by repro_torch.algorithms.*."""
 
     desc: AlgorithmDescriptor
 
@@ -1056,7 +1056,7 @@ class MultiQueryEngine:
         ``config.dynamic`` turns on dynamic-graph mode: an
         :class:`IngestStream` writer (``config.ingest``) applies timed edge
         batches between DES events and publishes immutable epoch snapshots
-        through its :class:`~repro.graph.epochs.GraphEpochLog`; every query
+        through its :class:`~repro_torch.graph.epochs.GraphEpochLog`; every query
         record stamps the epoch of the snapshot it pinned at start, and the
         shared prep cache's staleness stamp gains that epoch. Because the
         snapshot ``epoch`` is a component of ``Graph.key``, fusion

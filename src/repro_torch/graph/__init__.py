@@ -14,6 +14,15 @@ from .rmat import (
     rmat_graph,
     uniform_random_graph,
 )
+from .datasets import load_dataset, all_dataset_names, SNAP_SPECS
+from .epochs import GraphEpochLog
+from .sampler import (
+    DegreeStatTracker,
+    SampledBlock,
+    block_to_device,
+    plan_capacity,
+    sample_fanout,
+)
 from . import partition
 from .partition import GraphPartition, GraphShard, partition_graph
 
@@ -22,5 +31,8 @@ __all__ = [
     "pad_edges", "resolve_device",
     "rmat_edges", "rmat_graph", "uniform_random_graph", "grid_graph",
     "clustered_graph",
+    "load_dataset", "all_dataset_names", "SNAP_SPECS",
+    "GraphEpochLog", "DegreeStatTracker",
+    "sample_fanout", "plan_capacity", "SampledBlock", "block_to_device",
     "partition", "GraphPartition", "GraphShard", "partition_graph",
 ]

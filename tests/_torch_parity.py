@@ -29,7 +29,10 @@ def port_graph(jg):
 
 
 def hubs(degrees) -> np.ndarray:
-    """Vertex ids by descending out-degree (the benchmarks' BFS sources)."""
+    """Vertex ids by descending out-degree (the benchmarks' BFS sources),
+    from a JAX array or a tensor on any device."""
+    if hasattr(degrees, "is_cuda"):
+        degrees = degrees.cpu()
     return np.argsort(-np.asarray(degrees))
 
 

@@ -5,6 +5,8 @@ only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -631,3 +633,54 @@ def test_serving_engine_drains_on_card(cuda):
         eng.submit(r)
     assert eng.run_until_drained() == 16
     assert all(r.done and len(r.generated) == 4 for r in reqs) and all(w >= 1 for w in eng.plans)
+
+
+def test_datasets_and_epoch_snapshots_land_on_card(cuda):
+    from repro_torch.graph import GraphEpochLog, load_dataset
+
+    for name in ("roadNet-PA", "web-BerkStan"):
+        g = load_dataset(name, scale_div=512, device=None)
+        assert g.device.type == "cuda" and g.surrogate
+        want = load_dataset(name, scale_div=512, device="cpu")
+        assert g.key == want.key and torch.equal(g.csr_in.indices.cpu(), want.csr_in.indices)
+    log = GraphEpochLog(g)
+    rng = np.random.default_rng(0)
+    g1 = log.ingest(rng.integers(0, g.num_vertices, 100), rng.integers(0, g.num_vertices, 100))
+    tensors = (g1.csr.indptr, g1.csr.indices, g1.csr_in.indptr, g1.csr_in.indices, g1.src, g1.dst)
+    assert g1.epoch == 1 and all(t.device.type == "cuda" and t.dtype == torch.int32 for t in tensors)
+    assert g1.num_edges == g.num_edges + 100
+
+
+def test_dynamic_run_on_card_equals_cpu(cuda):
+    """fig22's dynamic run at RMAT scale 10 with its snapshots on the card
+    gives the same records (wall times aside) and results as on the CPU."""
+    from _torch_bench_rows import run_fig22
+
+    s0 = spmv_rows_cuda.launches
+    rep, pinned, log = run_fig22(True, scale=10, backend="cuda", device=cuda)
+    assert spmv_rows_cuda.launches > s0 and log.current().device.type == "cuda"
+    want, want_pinned, _ = run_fig22(True, scale=10, backend="cuda", device="cpu")
+
+    def fields(r):
+        return {k: v for k, v in dataclasses.asdict(r).items() if k != "measured_ns"}
+
+    assert [fields(r) for r in rep.records] == [fields(r) for r in want.records]
+    assert rep.ingest_events == want.ingest_events and rep.epochs_published == 6
+    for key, ex in pinned.items():
+        assert ex.graph.epoch == want_pinned[key].graph.epoch
+        if isinstance(ex, alg.BFSExecutor):
+            np.testing.assert_array_equal(ex.result(), want_pinned[key].result())
+            np.testing.assert_array_equal(ex.result(), alg.bfs_reference(ex.graph, ex.source))
+        else:
+            np.testing.assert_allclose(ex.result(), want_pinned[key].result(), rtol=2e-4, atol=1e-8)
+
+
+def test_block_to_device_defaults_to_card(cuda):
+    from repro_torch.graph import block_to_device, sample_fanout
+
+    g = rmat_graph(9, seed=3, device=cuda)
+    block = sample_fanout(g, np.array([1, 2, 3]), (4, 3), seed=1)
+    got = block_to_device(block)
+    assert all(t.device.type == "cuda" for t in got.values())
+    want = block_to_device(block, device="cpu")
+    assert all(torch.equal(got[k].cpu(), want[k]) for k in want)

@@ -16,6 +16,7 @@ import repro_torch.algorithms as talg  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 from repro.graph import rmat_graph  # noqa: E402
 from repro_torch.graph import rmat_graph as rmat_graph_port  # noqa: E402
+from _torch_bench_rows import one_torch_thread, make_executor  # noqa: E402,F401
 from _torch_parity import hubs, port_graph, records, report_numbers  # noqa: E402
 
 PKG = {"jax": (jalg, jcore), "torch": (talg, tcore)}
@@ -43,17 +44,6 @@ def graphs11():
 @pytest.fixture(scope="module")
 def graphs12():
     return _pair(12)  # the smallest RMAT scale at which fig14's sessions steal
-
-
-def make_executor(alg, algorithm, graph, seed=0):
-    """benchmarks/common.py::make_executor for either package."""
-    if algorithm == "bfs":
-        return alg.BFSExecutor(graph, int(hubs(graph.out_degrees())[seed % 8]))
-    if algorithm in ("pr_pull", "pr_push"):
-        return alg.PageRankExecutor(graph, mode=algorithm.split("_")[1], max_iters=5, tol=0)
-    if algorithm == "degree_count":
-        return alg.DegreeCountExecutor(graph)
-    raise ValueError(algorithm)
 
 
 def _run(pkg, graph, mk, *, sessions, queries=1, policy="scheduler", pool=None, backend=None, **cfg):
