@@ -7,9 +7,9 @@ It needs one CUDA device and runs the port's paths at full size: the
 graph engine at RMAT scale 20, on the SNAP surrogates at the SNAP graphs'
 own sizes and under live edge ingest at RMAT scale 20, the two-tower
 retrieval server at the full width of ``make_config()`` (18.54 GB of
-tables), and TinyLlama-1.1B serving at full width and depth. For a quick
-check at small sizes run ``tests/test_torch_cuda.py``. Phases, each raising
-on failure:
+tables), TinyLlama-1.1B serving at full width and depth, and MoE serving
+(grok-1, arctic) at full width with depth cut. For a quick check at small
+sizes run ``tests/test_torch_cuda.py``. Phases, each raising on failure:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
 2. build — all five CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
@@ -79,7 +79,26 @@ on failure:
    ``prefill_32k``'s sequence (B=1, S=32768) in bf16, and at the served
    shape with B=2 in float32 (the CUDA-core kernel), each timed beside the
    plain version and ``scaled_dot_product_attention``;
-10. isolation — neither JAX nor the JAX package was imported.
+10. MoE serving — with TinyLlama freed: grok-1-314b
+    (``configs/grok_1_314b.py::make_config()``, dense dispatch, bf16,
+    random weights from the seed) at full width, 4 of its 64 layers (42.6
+    GB), prefills 8 prompts of 2048 tokens through the flash kernel (Dh =
+    128, 6 query heads a KV head; 4 launches), decodes 32 greedy steps and
+    runs the engine on the LM phase's 8 requests; then, with grok freed,
+    arctic-480b (128 experts and the dense residual) at full width, 1 of 35
+    layers (28.1 GB), prefills the same way (1 launch) and decodes 8 steps.
+    For each: (a) layer 0's ``moe_block`` on the prefill's own ``ln2``
+    activations against a float32 oracle written from the definition
+    (routing and kept pairs equal, outputs within a bf16 allowance), the
+    gather dispatch at 16 groups against both on the tokens that fit under
+    both; (b) the same prefill through the kernel's plain version: tokens
+    whose routing first differs a layer within a near-tie share, logits of
+    sequences routed alike within a relative RMS, greedy tokens equal
+    outside near-ties; (c) the kernel against its plain version at the
+    served shape, timed beside ``scaled_dot_product_attention``; (d) one
+    launch a layer. (token, choice) pairs dropped per layer, a profiled
+    prefill and decode step and the peak memory are printed;
+11. isolation — neither JAX nor the JAX package was imported.
 
 The kernels' times go out as one JSON line. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -166,6 +185,29 @@ FLASH_F32_TOL = 2e-5  # the JAX package's flash tolerance (tests/test_kernels.py
 # to these ratios of RMS and largest deviation
 NOISE_RMS_RATIO, NOISE_MAX_RATIO = 1.25, 1.5
 
+# MoE serving at full width, depth cut to fit one card (arch, layers kept of
+# the config's, greedy decode steps, whether the engine runs): grok-1 4 of 64
+# layers (42.6 GB of bf16 weights), arctic 1 of 35 (28.1 GB); 8 prompts of
+# 2048 tokens, the LM phase's engine constants
+MOE_RUNS = (("grok-1-314b", 4, 32, True), ("arctic-480b", 1, 8, False))
+MOE_BATCH, MOE_PROMPT = 8, 2048
+MOE_GATHER_GROUPS = 16  # the configs' dispatch_groups for the gather dispatch
+# moe_block in bf16 against a float32 oracle on the same bf16 weights and
+# tokens: each product rounds to bf16 (the expert's g, u, h and output, the
+# gate), so an output sits a few bf16 half-steps (2^-9 to 2^-8 relative) of
+# its terms' size from the oracle (where terms cancel, far more than a step
+# of its own size), plus the roundings of h carried through the sum over
+# d_ff: |diff| <= MOE_RTOL * scale + MOE_ATOL_RMS * RMS(oracle), where scale
+# is the sum of the absolute values of the output's terms
+MOE_RTOL, MOE_ATOL_RMS = 2**-6, 2**-5
+# the prefill through the kernel against the prefill through its plain
+# version, both bf16: a token's routing may first differ (in no more than
+# this share of tokens a layer) only where bf16 noise meets a near-tie of
+# router probabilities or the capacity edge; the logits of a sequence whose
+# last token routed alike in every layer stay within this RMS of the plain
+# path's, relative to their own RMS
+MOE_FLIP_SHARE, MOE_LOGIT_REL_RMS = 0.05, 0.05
+
 TIMED_BATCHES, TIMED_PER_BATCH = 5, 20
 # published H100 peaks (NVIDIA data sheets): HBM bytes/s by part, the
 # float32/int32 CUDA-core rate for the adds these kernels do, and the dense
@@ -225,26 +267,32 @@ def time_ms(fn, warmup: int = 3, batches: int = TIMED_BATCHES, per_batch: int = 
     return float(np.median([a.elapsed_time(b) / per_batch for a, b in pairs]))
 
 
-def device_time_by_kernel(run) -> tuple[dict[str, float], float]:
+def device_time_by_kernel(run, tries: int = 1) -> tuple[dict[str, float], float]:
     """Device time per kernel or copy name (ms) over one call of ``run``,
     from torch.profiler, and the call's wall time (s). Only device-side
     events count: a CPU op such as ``aten::copy_`` also carries the device
-    time of what it launched, which is listed on its own as well."""
+    time of what it launched, which is listed on its own as well. Where
+    ``run`` may run again, ``tries`` > 1 profiles it again after a window
+    in which the profiler saw no device event at all (it loses whole
+    windows now and then: see ``device_ms_per_call``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name: dict[str, float] = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
-        us = e.self_device_time_total
-        if us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name: dict[str, float] = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+                continue
+            us = e.self_device_time_total
+            if us > 0:
+                by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+        if by_name:
+            break
     return by_name, wall
 
 
@@ -269,16 +317,19 @@ def device_time_from_trace(run) -> tuple[dict[str, float], float]:
     return by_name, wall
 
 
-def device_ms_per_call(fn, calls: int = TIMED_PER_BATCH, tries: int = 3) -> tuple[float, int]:
+def device_ms_per_call(fn, calls: int = TIMED_PER_BATCH, tries: int = 5) -> tuple[float | None, int]:
     """Device time (ms) and kernel launches per call of ``fn``, from
     torch.profiler over ``calls`` back-to-back calls after one warm-up: the
     device's own time, free of the host's launch rate that CUDA events
     around back-to-back calls may measure instead. The profiler can miss a
     few events of a window (a later profile in a process has lost up to 3
     of 20), so each kernel counts as its mean over the events seen, times
-    its launches per call rounded. It has also lost a whole window once (no
-    device event at all, in the retrieval phase of a run), so a window
-    without device events is profiled again, up to ``tries`` times."""
+    its launches per call rounded. It also loses whole windows (no device
+    event at all: one window in 60 of a probe on the H100, and three in a
+    row in the retrieval phase of a run), so a window without device events
+    is profiled again, up to ``tries`` times; if every window was lost, the
+    time is None (not measured). The launches per call that checks rely on
+    come from ``launches_per_call``, which needs no profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -297,8 +348,48 @@ def device_ms_per_call(fn, calls: int = TIMED_PER_BATCH, tries: int = 3) -> tupl
             ms += e.self_device_time_total / 1e3 / e.count * per_call
             launches += per_call
         if launches:
-            break
-    return ms, launches
+            return ms, launches
+    return None, 0
+
+
+# CUgraphNodeType (cuda.h): the graph nodes that run device work
+GRAPH_WORK_NODES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def launches_per_call(fn) -> dict[str, int] | None:
+    """The device work one call of ``fn`` issues, counted without the
+    profiler (which has lost whole windows of device events late in this
+    script): the call is captured into a CUDA graph, and the graph's nodes
+    are counted by type through the driver's graph API. Returns the count
+    of each type of work node ({} for none), or None where ``fn`` cannot be
+    captured (a call that waits on the host)."""
+    import ctypes
+
+    fn()  # outside the capture: lazy set-up, a kernel's first load
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    try:
+        with torch.cuda.graph(g):
+            fn()
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return None
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    counts: dict[str, int] = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if kind.value in GRAPH_WORK_NODES:
+            counts[GRAPH_WORK_NODES[kind.value]] = counts.get(GRAPH_WORK_NODES[kind.value], 0) + 1
+    g.reset()
+    return counts
 
 
 def short_kernel_name(name: str, width: int = 90) -> str:
@@ -595,7 +686,8 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
         def launch_all():
             for a, b in ranges:
                 spmv_tiles(t_in, contrib, a, b)
-        return device_ms_per_call(launch_all, calls=3)[0] / len(ranges)
+        ms = device_ms_per_call(launch_all, calls=3)[0]
+        return None if ms is None else ms / len(ranges)
 
     slice_dev = per_launch_device_ms([(a, a + w) for a in range(0, T, w)])
     two_dev = per_launch_device_ms([(a, a + 2) for a in range(0, T, 2)])
@@ -1210,11 +1302,13 @@ def retrieval_path(dev: torch.device, bw: float) -> list[dict]:
         def library():
             return F.embedding_bag(ids, table, offsets, mode="sum", per_sample_weights=w)
 
-        k_dev, k_launches = device_ms_per_call(kernel)
-        l_dev, l_launches = device_ms_per_call(library)
-        # one launch a call (the earlier two-kernel version issued two)
-        if k_launches != 1:
-            raise AssertionError(f"an embedding_bag call issued {k_launches} kernel launches, not one")
+        # one launch a call and no other device work (the earlier two-kernel
+        # version issued two), counted in a CUDA graph of one call
+        k_launches, l_launches = launches_per_call(kernel), launches_per_call(library)
+        if k_launches != {"kernel": 1}:
+            raise AssertionError(f"an embedding_bag call issued {k_launches}, not one kernel launch")
+        k_dev, k_seen = device_ms_per_call(kernel)
+        l_dev, l_seen = device_ms_per_call(library)
         bag_shapes.append({
             "shape": f"{field}: {b} bags x {hot} ids, {rows} distinct rows of {table.shape[0]}",
             "ms": time_ms(kernel),
@@ -1224,6 +1318,7 @@ def retrieval_path(dev: torch.device, bw: float) -> list[dict]:
             # the profiler's device time per call beside the event times above
             "device_ms": k_dev, "library_device_ms": l_dev,
             "launches_per_call": k_launches, "library_launches_per_call": l_launches,
+            "profiled_launches_per_call": k_seen, "library_profiled_launches_per_call": l_seen,
         })
         log(json.dumps({"embedding_bag_times": bag_shapes[-1]}))
     main_shape = bag_shapes[0]  # the corpus's item_tags field
@@ -1260,6 +1355,80 @@ def token_agreement(tok_a: torch.Tensor, tok_p: torch.Tensor, logits_p: list, al
     return equal, ties
 
 
+def greedy_decode(tf, cfg, model, logits, cache, steps: int):
+    """Tokens [B, steps + 1] from the prefill logits on, the logits behind
+    each, and each decode step's wall seconds."""
+    toks, seen, lat = [], [logits], []
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    for _ in range(steps):
+        toks.append(tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tf.decode_step(cfg, model, tok, cache)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        seen.append(logits)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    toks.append(tok)
+    return torch.cat(toks, dim=1), seen, lat
+
+
+def layer0_qkv(model, cfg, tokens: torch.Tensor):
+    """Layer 0's q, k, v (after RoPE) of a prefill of ``tokens``: the flash
+    kernel's inputs at the served shape."""
+    from repro_torch.layers.attention import gqa_project
+    from repro_torch.layers.norms import rmsnorm
+    from repro_torch.layers.rotary import apply_rope
+
+    b, s = tokens.shape
+    layer = model.layers[0]
+    h = rmsnorm(layer.ln1, model.embed[tokens.long()], eps=cfg.norm_eps)
+    q, k, v = gqa_project(layer.attn, h)
+    pos = torch.arange(s, device=tokens.device).expand(b, s)
+    return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
+
+
+def sdpa_library(q, k, v):
+    """The yardstick for the flash kernel: one PyTorch call, never used by the port."""
+    from torch.nn import functional as F
+
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                          is_causal=True, enable_gqa=True).transpose(1, 2)
+
+
+def hold_flash(q, k, v, what: str, bw: float, block_kv: int, reps: dict) -> dict:
+    """The flash kernel against its plain version on bf16 q/k/v at
+    torch.testing's bf16 tolerances, then timed beside the plain version
+    and ``scaled_dot_product_attention``, with its bound at the bf16
+    tensor-core rate. ``reps`` overrides ``time_ms``'s counts."""
+    from repro_torch.kernels.attention import flash_attention_cuda, flash_attention_plain
+
+    def plain(q, k, v):
+        return flash_attention_plain(q, k, v, block_kv=block_kv)
+
+    b, s, h, dh = q.shape
+    got, want = flash_attention_cuda(q, k, v), plain(q, k, v)
+    torch.testing.assert_close(got, want, rtol=FLASH_BF16_RTOL, atol=FLASH_BF16_ATOL)
+    checks = {"bf16": float((got.float() - want.float()).abs().max()),
+              "library_vs_plain_bf16": float((sdpa_library(q, k, v).float() - want.float()).abs().max())}
+    del got, want
+    log(f"flash {what} B={b} S={s} H={h} K={k.shape[2]} Dh={dh}: kernel vs plain max |diff| {checks}")
+    n_ops = 2 * dh * s * (s + 1) * b * h
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound_ms(n_bytes, n_ops, bw, BF16_TENSOR_OPS_PER_S)
+    row = {
+        "shape": f"{what}: B={b} S={s} H={h} K={k.shape[2]} Dh={dh} bf16",
+        "ms": time_ms(lambda: flash_attention_cuda(q, k, v), **reps),
+        "plain_ms": time_ms(lambda: plain(q, k, v), **(reps or dict(batches=5, per_batch=4))),
+        "library_ms": time_ms(lambda: sdpa_library(q, k, v), **reps),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms_f32_cuda_cores": bound_ms(n_bytes, n_ops, bw)[0],
+        "flop": n_ops, "bytes": n_bytes, "max_abs_err": checks,
+    }
+    log(json.dumps({"flash_attention_times": row}))
+    return row
+
+
 @torch.no_grad()
 def lm_path(dev: torch.device, bw: float) -> list[dict]:
     """Phase 9: TinyLlama-1.1B serving at full width and depth. Batched
@@ -1267,15 +1436,10 @@ def lm_path(dev: torch.device, bw: float) -> list[dict]:
     prefill with the kernel's plain version, the continuous-batching engine,
     the kernel against its plain version at the served and prefill_32k
     shapes, and the times."""
-    from torch.nn import functional as F
-
     from repro_torch import core
     from repro_torch.configs import get_arch
     from repro_torch.kernels.attention import flash_attention_cuda, flash_attention_plain
     from repro_torch.launch.steps import LM_SHAPES
-    from repro_torch.layers.attention import gqa_project
-    from repro_torch.layers.norms import rmsnorm
-    from repro_torch.layers.rotary import apply_rope
     from repro_torch.models import transformer as tf
     from repro_torch.serving import Request, ServingEngine
 
@@ -1300,21 +1464,7 @@ def lm_path(dev: torch.device, bw: float) -> list[dict]:
         return flash_attention_plain(q, k, v, block_kv=cfg.block_kv)
 
     def greedy(logits, cache, steps: int):
-        """Tokens [B, steps + 1] from the prefill logits on, the logits behind
-        each, and each decode step's wall seconds."""
-        toks, seen, lat = [], [logits], []
-        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
-        for _ in range(steps):
-            toks.append(tok)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = tf.decode_step(cfg, model, tok, cache)
-            torch.cuda.synchronize()
-            lat.append(time.perf_counter() - t0)
-            seen.append(logits)
-            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
-        toks.append(tok)
-        return torch.cat(toks, dim=1), seen, lat
+        return greedy_decode(tf, cfg, model, logits, cache, steps)
 
     # the main path: batched prefill and greedy decode, then the engine -------
     flash_attention_cuda.launches = 0
@@ -1394,55 +1544,21 @@ def lm_path(dev: torch.device, bw: float) -> list[dict]:
         f"{eng_ties} near-ties")
 
     # the kernel against its plain version on layer 0's q/k/v ---------------
-    def layer0_qkv(tokens: torch.Tensor):
-        b, s = tokens.shape
-        layer = model.layers[0]
-        h = rmsnorm(layer.ln1, model.embed[tokens.long()], eps=cfg.norm_eps)
-        q, k, v = gqa_project(layer.attn, h)
-        pos = torch.arange(s, device=dev).expand(b, s)
-        return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
-
-    def library(q, k, v):  # the yardstick: one PyTorch call, never used by the port
-        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                              is_causal=True, enable_gqa=True).transpose(1, 2)
-
     long_tokens = torch.randint(0, cfg.vocab, (1, long_seq), generator=gen, device=dev, dtype=torch.int32)
-    flash_err, shapes = 0.0, []
+    shapes = []
     for what, tokens, reps in (("served", prompts, {}), ("prefill_32k", long_tokens,
                                                         dict(warmup=1, batches=3, per_batch=1))):
-        q, k, v = layer0_qkv(tokens)
-        b, s, h, dh = q.shape
-        got, want = flash_attention_cuda(q, k, v), plain_attention(q, k, v)
-        torch.testing.assert_close(got, want, rtol=FLASH_BF16_RTOL, atol=FLASH_BF16_ATOL)
-        err = float((got.float() - want.float()).abs().max())
-        lib_err = float((library(q, k, v).float() - want.float()).abs().max())
-        flash_err = max(flash_err, err)
-        checks = {"bf16": err, "library_vs_plain_bf16": lib_err}
-        f32 = None
+        q, k, v = layer0_qkv(model, cfg, tokens)
+        shapes.append(hold_flash(q, k, v, what, bw, cfg.block_kv, reps))
         if what == "served":  # float32 inputs (the CUDA-core kernel) at the JAX package's tolerance
+            b, s, h, dh = q.shape
             f32 = q[:2].float(), k[:2].float(), v[:2].float()
             got32, want32 = flash_attention_cuda(*f32), plain_attention(*f32)
             torch.testing.assert_close(got32, want32, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)
-            checks["float32_b2"] = float((got32 - want32).abs().max())
-            flash_err = max(flash_err, checks["float32_b2"])
+            err32 = float((got32 - want32).abs().max())
             del got32, want32
-        del got, want
-        log(f"flash {what} B={b} S={s}: kernel vs plain max |diff| {checks}")
-        n_ops = 2 * dh * s * (s + 1) * b * h
-        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        b_ms, b_by = bound_ms(n_bytes, n_ops, bw, BF16_TENSOR_OPS_PER_S)
-        shapes.append({
-            "shape": f"{what}: B={b} S={s} H={h} K={k.shape[2]} Dh={dh} bf16",
-            "ms": time_ms(lambda: flash_attention_cuda(q, k, v), **reps),
-            "plain_ms": time_ms(lambda: plain_attention(q, k, v),
-                                **(reps or dict(batches=5, per_batch=4))),
-            "library_ms": time_ms(lambda: library(q, k, v), **reps),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "bound_ms_f32_cuda_cores": bound_ms(n_bytes, n_ops, bw)[0],
-            "flop": n_ops, "bytes": n_bytes, "max_abs_err": checks,
-        })
-        log(json.dumps({"flash_attention_times": shapes[-1]}))
-        if f32 is not None:  # the float32 path, bound at the CUDA cores' float32 rate
+            log(f"flash served float32 B=2: kernel vs plain max |diff| {err32}")
+            # the float32 path, bound at the CUDA cores' float32 rate
             n_ops32 = 2 * dh * s * (s + 1) * 2 * h
             n_bytes32 = 4 * (2 * f32[0].numel() + f32[1].numel() + f32[2].numel())
             b32_ms, b32_by = bound_ms(n_bytes32, n_ops32, bw)
@@ -1450,12 +1566,14 @@ def lm_path(dev: torch.device, bw: float) -> list[dict]:
                 "shape": f"{what} float32: B=2 S={s} H={h} K={k.shape[2]} Dh={dh} float32",
                 "ms": time_ms(lambda: flash_attention_cuda(*f32)),
                 "plain_ms": time_ms(lambda: plain_attention(*f32), batches=5, per_batch=4),
-                "library_ms": time_ms(lambda: library(*f32)),
+                "library_ms": time_ms(lambda: sdpa_library(*f32)),
                 "bound_ms": b32_ms, "bound_by": b32_by,
-                "flop": n_ops32, "bytes": n_bytes32, "max_abs_err": checks["float32_b2"],
+                "flop": n_ops32, "bytes": n_bytes32, "max_abs_err": err32,
             })
             log(json.dumps({"flash_attention_times": shapes[-1]}))
-        del q, k, v, f32
+            del f32
+        del q, k, v
+    flash_err = max(shapes[0]["max_abs_err"]["bf16"], shapes[1]["max_abs_err"], shapes[2]["max_abs_err"]["bf16"])
     torch.cuda.empty_cache()
 
     # end-to-end times: a warm prefill, the decode steps, and a profiled prefill
@@ -1464,7 +1582,7 @@ def lm_path(dev: torch.device, bw: float) -> list[dict]:
     tf.prefill(cfg, model, prompts, max_len)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    by_name, pwall = device_time_by_kernel(lambda: tf.prefill(cfg, model, prompts, max_len))
+    by_name, pwall = device_time_by_kernel(lambda: tf.prefill(cfg, model, prompts, max_len), tries=3)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     flash_busy = sum(v for k_, v in by_name.items() if "flash_attention" in k_)
@@ -1507,6 +1625,338 @@ def lm_path(dev: torch.device, bw: float) -> list[dict]:
                                          "bound_ms_f32_cuda_cores")},
         "at": main_shape["shape"], "shapes": shapes,
     }]
+
+
+class RoutingRecorder:
+    """Wraps the transformer's ``moe_block`` while active and records each
+    call's routing: the experts each token chose (``chosen`` [T, E] bool),
+    those whose (token, choice) pair the dense dispatch kept (``kept``), and
+    the pairs it dropped; with ``keep_first_input`` also the first call's
+    input (layer 0's ``ln2`` activations). The records come from the port's
+    own ``route`` and ``dense_positions`` on the block's input; the block
+    itself runs unchanged."""
+
+    def __init__(self, tf, moe, keep_first_input: bool = False):
+        self.tf, self.moe, self.keep_first_input = tf, moe, keep_first_input
+        self.calls: list[dict] = []
+        self.first_input = None
+
+    def __enter__(self):
+        self.orig = self.tf.moe_block
+        moe = self.moe
+
+        def recorded(params, x, cfg):
+            flat = x.reshape(-1, x.shape[-1])
+            if self.keep_first_input and self.first_input is None:
+                self.first_input = flat.clone()
+            _, _, idx = moe.route(params, flat, cfg)
+            keep = moe.dense_positions(idx, cfg.num_experts) < moe._capacity(flat.shape[0], cfg)
+            onehot = torch.nn.functional.one_hot(idx, cfg.num_experts).bool()
+            self.calls.append({"chosen": onehot.any(1), "kept": (onehot & keep[..., None]).any(1),
+                               "dropped": int((~keep).sum())})
+            return self.orig(params, x, cfg)
+
+        self.tf.moe_block = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.moe_block = self.orig
+
+
+def moe_oracle(params, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense-dispatch MoE block from its definition, in float32, written
+    apart from the port's: the router's probabilities from an IEEE float32
+    product of the bf16 tokens and router weight; each token's top-k experts
+    by repeated argmax (the first of equal values, as ``lax.top_k``); the
+    gates renormalised; each expert keeps the first ``capacity`` (token,
+    choice) pairs that chose it, in token-major order; and an expert's
+    SwiGLU over its kept tokens with its weights upcast to float32 one
+    expert at a time. Returns (out [T, D] float32, its terms' scale [T, D]
+    (the sum of the absolute values of the terms that make each output),
+    experts [T, k], gates [T, k], kept [T, k])."""
+    from torch.nn import functional as F
+
+    t, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    capacity = max(int(t * k * cfg.capacity_factor / e), 1)
+    xf = x.float()
+    probs = torch.softmax(xf @ params["w_router"].float(), dim=-1)
+    masked, experts, vals = probs.clone(), [], []
+    for _ in range(k):
+        i = masked.argmax(-1, keepdim=True)
+        experts.append(i)
+        vals.append(probs.gather(1, i))
+        masked.scatter_(1, i, float("-inf"))
+    experts, vals = torch.cat(experts, 1), torch.cat(vals, 1)
+    gates = vals / vals.sum(-1, keepdim=True)
+    kept = torch.zeros(t, k, dtype=torch.bool, device=x.device)
+    out = torch.zeros(t, d, dtype=torch.float32, device=x.device)
+    scale = torch.zeros(t, d, dtype=torch.float32, device=x.device)
+    flat = experts.reshape(-1)
+    for ex in range(e):
+        pairs = (flat == ex).nonzero()[:, 0][:capacity]
+        tok, choice = pairs // k, pairs % k
+        kept[tok, choice] = True
+        if pairs.numel() == 0:
+            continue
+        wg, wu, wo = (params[n][ex].float() for n in ("wi_gate", "wi_up", "wo"))
+        xe = xf[tok]
+        term = ((F.silu(xe @ wg) * (xe @ wu)) @ wo) * gates[tok, choice][:, None]
+        out.index_add_(0, tok, term)
+        scale.index_add_(0, tok, term.abs())
+        del wg, wu, wo, xe, term
+    if cfg.dense_residual:
+        r = params["residual"]
+        term = (F.silu(xf @ r["wi_gate"].float()) * (xf @ r["wi_up"].float())) @ r["wo"].float()
+        out += term
+        scale += term.abs()
+    return out, scale, experts, gates, kept
+
+
+def gather_kept(experts: torch.Tensor, gates: torch.Tensor, groups: int, per_group: int, e: int) -> torch.Tensor:
+    """[T, k]: the (token, choice) pairs the gather dispatch keeps, from its
+    definition: within each of ``groups`` runs of tokens, each expert keeps
+    the ``per_group`` tokens of largest positive gate, the first of equal ones."""
+    t, k = experts.shape
+    tg = t // groups
+    kept = torch.zeros(t, k, dtype=torch.bool, device=experts.device)
+    for g0 in range(0, t, tg):
+        ex, ga = experts[g0:g0 + tg], gates[g0:g0 + tg]
+        for j in range(e):
+            tok, choice = (ex == j).nonzero(as_tuple=True)
+            order = torch.sort(-ga[tok, choice], stable=True).indices[:per_group]  # tok ascending: ties to the first
+            kept[g0 + tok[order], choice[order]] = True
+    return kept
+
+
+def moe_tolerance_ratio(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor) -> float:
+    """The largest |got - want| over its allowance MOE_RTOL * scale +
+    MOE_ATOL_RMS * RMS(want): at most 1 passes."""
+    allow = MOE_RTOL * scale + MOE_ATOL_RMS * want.square().mean().sqrt()
+    return float(((got.float() - want).abs() / allow).max())
+
+
+@torch.no_grad()
+def moe_serving(dev: torch.device, bw: float, arch: str, n_layers: int, steps: int, with_engine: bool) -> dict:
+    """One MoE config at full width, ``n_layers`` deep: the main path
+    (prefill of MOE_BATCH x MOE_PROMPT tokens through the flash kernel,
+    ``steps`` greedy decode steps, for grok the engine), then checks (a) to
+    (d) and the times. Returns the phase's record and the kernel's shape rows."""
+    from repro_torch import core
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.layers import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import Request, ServingEngine
+
+    t_phase = time.perf_counter()
+    full = get_arch(arch).make_config()
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tf.TransformerLM(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    m = cfg.moe
+    log(f"moe: {cfg.name} {cfg.n_layers} of {full.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"over {cfg.n_kv_heads} KV heads of {cfg.dh}, d_ff {cfg.d_ff}, {m.num_experts} experts top-{m.top_k}"
+        f"{' + dense residual' if m.dense_residual else ''}, vocab {cfg.vocab}: {weight_bytes / 1e9:.2f} GB on "
+        f"the card, built in {build_s:.1f} s (peak {init_peak / 1e9:.2f} GB)")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab, (MOE_BATCH, MOE_PROMPT), generator=gen, device=dev, dtype=torch.int32)
+    max_len = MOE_PROMPT + steps
+    t_prefill = MOE_BATCH * MOE_PROMPT
+    cap_prefill, cap_decode = moe._capacity(t_prefill, m), moe._capacity(MOE_BATCH, m)
+
+    def plain_attention(q, k, v):
+        return flash_attention_plain(q, k, v, block_kv=cfg.block_kv)
+
+    # the main path: prefill and greedy decode (routing recorded), then the engine
+    flash_attention_cuda.launches = 0
+    torch.cuda.synchronize()
+    with RoutingRecorder(tf, moe, keep_first_input=True) as rec:
+        t0 = time.perf_counter()
+        logits, cache = tf.prefill(cfg, model, prompts, max_len)
+        torch.cuda.synchronize()
+        prefill_cold_s = time.perf_counter() - t0
+        prefill_launches = flash_attention_cuda.launches
+        toks, seen, step_s = greedy_decode(tf, cfg, model, logits, cache, steps)
+    engine_out = None
+    if with_engine:
+        rng = np.random.default_rng(SEED)
+        reqs = [Request(r, rng.integers(1, cfg.vocab, size=rng.integers(ENGINE_PROMPT[0], ENGINE_PROMPT[1] + 1))
+                        .astype(np.int32), max_new_tokens=ENGINE_NEW) for r in range(ENGINE_REQUESTS)]
+        engine = ServingEngine(cfg, model, max_batch=ENGINE_MAX_BATCH, max_len=ENGINE_MAX_LEN,
+                               hw=core.XEON_E5_2660V4)
+        for r in reqs:
+            engine.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = engine.run_until_drained()
+        torch.cuda.synchronize()
+        engine_s = time.perf_counter() - t0
+        if served != ENGINE_REQUESTS * ENGINE_NEW or not all(r.done and len(r.generated) == ENGINE_NEW
+                                                             for r in reqs):
+            raise AssertionError(f"{arch}: the engine emitted {served} tokens")
+        if not all(0 <= t < cfg.vocab for r in reqs for t in r.generated):
+            raise AssertionError(f"{arch}: the engine emitted a token outside the vocabulary")
+        engine_out = {"requests": ENGINE_REQUESTS, "prompt_tokens": sum(len(r.prompt) for r in reqs),
+                      "new_tokens": served, "wall_s": engine_s, "tokens_per_s": served / engine_s,
+                      "ticks": len(engine.plans),
+                      "planned_group_width_xeon_model": {str(w): engine.plans.count(w)
+                                                         for w in sorted(set(engine.plans))}}
+        del engine
+    launches = flash_attention_cuda.launches
+    # (d) the kernel ran once a layer in the prefill (and nowhere else: decode is plain torch)
+    if prefill_launches != cfg.n_layers or launches != cfg.n_layers:
+        raise AssertionError(f"{arch}: {prefill_launches} flash launches in the prefill of {cfg.n_layers} "
+                             f"layers, {launches} on the whole path")
+    if not bool(torch.isfinite(logits.float()).all()) or logits.shape != (MOE_BATCH, cfg.vocab):
+        raise AssertionError(f"{arch}: prefill logits are not finite or not [B, vocab]")
+    if not all(bool(torch.isfinite(x.float()).all()) for x in seen):
+        raise AssertionError(f"{arch}: decode logits are not finite")
+    kernel_routes = rec.calls[:cfg.n_layers]
+    dropped_prefill = [c["dropped"] for c in kernel_routes]
+    dropped_decode = [sum(c["dropped"] for c in rec.calls[cfg.n_layers + i::cfg.n_layers])
+                      for i in range(cfg.n_layers)]
+    x0 = rec.first_input
+    log(f"moe {arch} main path: prefill {MOE_BATCH} x {MOE_PROMPT} in {prefill_cold_s:.3f} s (first call, "
+        f"capacity {cap_prefill}), {steps} decode steps (capacity {cap_decode}), flash launches {launches}; "
+        f"(token, choice) pairs dropped per layer: prefill {dropped_prefill} of {t_prefill * m.top_k}, "
+        f"decode {dropped_decode} of {steps * MOE_BATCH * m.top_k}")
+
+    # (a) moe_block against the float32 oracle at layer 0 -----------------------
+    layer0 = model.layers[0].moe
+    want, scale, o_experts, o_gates, o_kept = moe_oracle(layer0, x0, m)
+    _, _, experts = moe.route(layer0, x0, m)
+    keep = moe.dense_positions(experts, m.num_experts) < cap_prefill
+    if not torch.equal(experts, o_experts) or not torch.equal(keep, o_kept):
+        raise AssertionError(f"{arch}: moe routing differs from the oracle's: "
+                             f"{int((experts != o_experts).any(1).sum())} tokens' experts, "
+                             f"{int((keep != o_kept).any(1).sum())} tokens' kept pairs")
+    got, _ = moe.moe_block(layer0, x0[None], m)
+    ratio_dense = moe_tolerance_ratio(got[0], want, scale)
+    m_gather = dataclasses.replace(m, dispatch="gather", dispatch_groups=MOE_GATHER_GROUPS)
+    got_g, _ = moe.moe_block(layer0, x0[None], m_gather)
+    per_group = min(max(cap_prefill // MOE_GATHER_GROUPS, 1), t_prefill // MOE_GATHER_GROUPS)
+    g_kept = gather_kept(o_experts, o_gates, MOE_GATHER_GROUPS, per_group, m.num_experts)
+    fit = o_kept.all(1) & g_kept.all(1)
+    ratio_gather = moe_tolerance_ratio(got_g[0][fit], want[fit], scale[fit])
+    ratio_gather_dense = moe_tolerance_ratio(got_g[0][fit], got[0][fit].float(), scale[fit])
+    oracle = {"tokens": t_prefill, "capacity": cap_prefill, "pairs_dropped": int((~o_kept).sum()),
+              "dense_max_diff_over_allowance": ratio_dense,
+              "dense_max_abs_diff": float((got[0].float() - want).abs().max()),
+              "oracle_rms": float(want.square().mean().sqrt()),
+              "gather_groups": MOE_GATHER_GROUPS, "gather_capacity_per_group": per_group,
+              "gather_pairs_dropped": int((~g_kept).sum()), "tokens_fit_both": int(fit.sum()),
+              "gather_vs_oracle_over_allowance": ratio_gather,
+              "gather_vs_dense_over_allowance": ratio_gather_dense}
+    log(json.dumps({"moe_oracle": {"arch": arch, **oracle}}))
+    if max(ratio_dense, ratio_gather, ratio_gather_dense) > 1 or int(fit.sum()) == 0:
+        raise AssertionError(f"{arch}: moe_block strays past the bf16 allowance from the float32 oracle: {oracle}")
+    del want, scale, got, got_g, x0, experts, keep, o_experts, o_gates, o_kept, g_kept, fit
+    torch.cuda.empty_cache()
+
+    # (b) the same prefill and decode through the kernel's plain version -------
+    with RoutingRecorder(tf, moe) as rec_p:
+        logits_p, cache_p = tf.prefill(cfg, model, prompts, max_len, attention=plain_attention)
+    for n in ("k", "v"):  # layer 0's cache precedes any attention
+        if not torch.equal(cache[n][0, :, :MOE_PROMPT], cache_p[n][0, :, :MOE_PROMPT]):
+            raise AssertionError(f"{arch}: layer 0's {n} cache differs between the two paths")
+    # a token whose routing differed in an earlier layer carries another
+    # hidden state, so only a first difference is a near-tie's; a moved
+    # (token, expert) membership moves its expert's capacity edge by one
+    # pair at most, so kept pairs alone differ for no more tokens than that
+    flips, new_flips, keep_only, xor_pairs = [], [], [], []
+    alike = torch.ones(t_prefill, dtype=torch.bool, device=dev)
+    for a, b in zip(kernel_routes, rec_p.calls):
+        chosen_diff = (a["chosen"] != b["chosen"]).any(1)
+        kept_diff = (a["kept"] != b["kept"]).any(1)
+        flips.append(int(chosen_diff.sum()))
+        new_flips.append(int((chosen_diff & alike).sum()))
+        keep_only.append(int((kept_diff & ~chosen_diff).sum()))
+        xor_pairs.append(int((a["chosen"] != b["chosen"]).sum()))
+        alike &= ~(chosen_diff | kept_diff)
+    last_alike = alike[torch.arange(MOE_BATCH, device=dev) * MOE_PROMPT + MOE_PROMPT - 1]
+    log(f"moe {arch} kernel vs plain prefill: tokens whose experts differ per layer {flips} of {t_prefill} "
+        f"({new_flips} for the first time), tokens whose kept pairs alone differ {keep_only} ({xor_pairs} "
+        f"(token, expert) memberships moved)")
+    for f, ko, xp in zip(new_flips, keep_only, xor_pairs):
+        if f > MOE_FLIP_SHARE * t_prefill or ko > xp:
+            raise AssertionError(f"{arch}: routing of the kernel path and the plain path differs past bf16 "
+                                 f"near-ties: {flips}, {new_flips}, {keep_only}, {xor_pairs}")
+    dl = (logits.float() - logits_p.float())[last_alike]
+    rel = float(dl.square().mean().sqrt() / logits_p.float()[last_alike].square().mean().sqrt()) \
+        if bool(last_alike.any()) else float("nan")
+    logit_diff = float((logits.float() - logits_p.float()).abs().max())
+    if bool(last_alike.any()) and not rel <= MOE_LOGIT_REL_RMS:
+        raise AssertionError(f"{arch}: last-position logits differ by {rel:.4g} RMS (relative) where routing agreed")
+    toks_p, seen_p, _ = greedy_decode(tf, cfg, model, logits_p, cache_p, steps)
+    equal, ties = token_agreement(toks, toks_p, seen_p,
+                                  lambda b, t: float((seen[t][b].float() - seen_p[t][b].float()).abs().max()))
+    log(f"moe {arch}: {int(last_alike.sum())} of {MOE_BATCH} sequences' last tokens routed alike in every layer, "
+        f"their logits' relative RMS difference {rel:.4g}; largest |diff| over all {logit_diff:.4g}; greedy tokens "
+        f"{equal} of {toks.numel()} equal to the plain path's, {ties} near-ties")
+    del cache_p, seen_p, logits_p, rec_p
+
+    # (c) the kernel against its plain version on layer 0's q/k/v ---------------
+    q, k, v = layer0_qkv(model, cfg, prompts)
+    flash_row = hold_flash(q, k, v, f"{arch} served", bw, cfg.block_kv, {})
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # end-to-end times: a warm prefill, a profiled prefill and decode step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tf.prefill(cfg, model, prompts, max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    by_name, pwall = device_time_by_kernel(lambda: tf.prefill(cfg, model, prompts, max_len), tries=3)
+    busy = sum(by_name.values())
+    if not any("flash_attention_wgmma_kernel" in k_ for k_ in by_name):
+        raise AssertionError(f"{arch}: the profiled prefill ran no tensor-core flash kernel")
+    step_by_name, step_wall = device_time_by_kernel(lambda: tf.decode_step(cfg, model, toks[:, -1:], cache))
+    step_busy = sum(step_by_name.values())
+    top = lambda d: {short_kernel_name(k_, 60): v_ for k_, v_ in sorted(d.items(), key=lambda kv: -kv[1])[:8]}  # noqa: E731
+    record = {
+        "arch": arch, "layers": cfg.n_layers, "layers_full": full.n_layers, "weight_bytes": weight_bytes,
+        "build_s": build_s, "init_peak_bytes": init_peak,
+        "prefill_batch": MOE_BATCH, "prompt_len": MOE_PROMPT, "capacity_prefill": cap_prefill,
+        "capacity_decode": cap_decode,
+        "prefill_s": prefill_s, "prefill_first_call_s": prefill_cold_s, "prefill_tokens_per_s": t_prefill / prefill_s,
+        "decode_steps": steps, "decode_step_ms_median": float(np.median(step_s)) * 1e3,
+        "decode_step_ms_all": [x * 1e3 for x in step_s], "decode_tokens_per_s": MOE_BATCH / float(np.median(step_s)),
+        "engine": engine_out, "flash_launches": launches,
+        "pairs_dropped_prefill_per_layer": dropped_prefill, "pairs_dropped_decode_per_layer": dropped_decode,
+        "oracle_layer0": oracle,
+        "kernel_vs_plain": {"tokens_experts_differ_per_layer": flips, "tokens_first_differ_per_layer": new_flips,
+                            "tokens_kept_only_differ_per_layer": keep_only,
+                            "last_tokens_alike": int(last_alike.sum()), "logit_rel_rms_where_alike": rel,
+                            "logit_max_abs_diff": logit_diff, "greedy_tokens_equal": equal,
+                            "greedy_near_ties": ties},
+        "prefill_profile": {"wall_s": pwall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / (pwall * 1e3),
+                            "flash_attention_ms": sum(v_ for k_, v_ in by_name.items() if "flash_attention" in k_),
+                            "top_kernels_ms": top(by_name)},
+        "decode_step_profile": {"wall_s": step_wall, "device_busy_ms": step_busy,
+                                "device_idle_share": 1.0 - step_busy / (step_wall * 1e3),
+                                "top_kernels_ms": top(step_by_name)},
+        "peak_bytes": torch.cuda.max_memory_allocated(), "phase_s": time.perf_counter() - t_phase,
+    }
+    log(json.dumps({"moe_path": record}))
+    return {"record": record, "flash_row": flash_row, "launches": launches}
+
+
+def moe_path(dev: torch.device, bw: float) -> list[dict]:
+    """Phase 10: grok-1 then arctic, each freed before the next."""
+    out = []
+    for arch, n_layers, steps, with_engine in MOE_RUNS:
+        out.append(moe_serving(dev, bw, arch, n_layers, steps, with_engine))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1580,7 +2030,19 @@ def main() -> int:
     kernels += lm_path(dev, bw)
     log(f"lm phase: {time.perf_counter() - t0:.1f} s")
 
-    # 10. isolation -------------------------------------------------------------
+    # 10. MoE serving at full width ---------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()  # TinyLlama is gone; grok-1's 42.6 GB need the room
+    t0 = time.perf_counter()
+    moe_runs = moe_path(dev, bw)
+    log(f"moe phase: {time.perf_counter() - t0:.1f} s")
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    flash["launches_by_phase"] = {"lm_tinyllama": flash["launches"],
+                                  **{f"moe_{r['record']['arch']}": r["launches"] for r in moe_runs}}
+    flash["shapes"] += [r["flash_row"] for r in moe_runs]
+    flash["max_abs_err"] = max(flash["max_abs_err"], *(r["flash_row"]["max_abs_err"]["bf16"] for r in moe_runs))
+
+    # 11. isolation -------------------------------------------------------------
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     if leaked:
         raise AssertionError(f"imported the JAX side: {leaked}")

@@ -10,6 +10,8 @@ _MODULES = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "stablelm-1.6b": "stablelm_1_6b",
     "two-tower-retrieval": "two_tower_retrieval",
+    "grok-1-314b": "grok_1_314b",
+    "arctic-480b": "arctic_480b",
 }
 
 PORTED_ARCHS = list(_MODULES)

@@ -13,7 +13,10 @@ values it computes with are identical.
 The prefill's attention is ``layers.attention.blocked_causal_attention_gqa``:
 the hand-written flash-attention kernel on the card. The reference's
 ``constrain`` (activation sharding) and ``scan_unroll`` have no counterpart
-on one device. Training (``forward``, ``loss_fn``), MoE blocks and the
+on one device. A layer's feed-forward block is the SwiGLU ``mlp`` or, when
+``cfg.moe`` is set (grok-1, arctic), ``layers.moe.moe_block`` over the
+layer's ``moe`` weights; serving discards its auxiliary loss, as the
+reference does. Training (``forward``, ``loss_fn``) and the
 abstract/sharding helpers wait for later slices.
 """
 from __future__ import annotations
@@ -28,6 +31,7 @@ from torch import nn
 from ..graph.structure import resolve_device
 from ..layers.attention import blocked_causal_attention_gqa, decode_attention, gqa_project
 from ..layers.mlp import swiglu
+from ..layers.moe import MoEConfig, moe_block
 from ..layers.norms import rmsnorm
 from ..layers.rotary import apply_rope
 
@@ -42,7 +46,7 @@ class LMConfig:
     d_ff: int
     vocab: int
     head_dim: int | None = None
-    moe: Any = None                  # the reference's MoEConfig; MoE blocks are not ported yet
+    moe: MoEConfig | None = None
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16      # activation/compute dtype
@@ -89,8 +93,11 @@ class LMConfig:
 
 
 class Block(nn.Module):
-    """One decoder layer's weights: ``ln1``, ``attn``, ``ln2``, ``mlp``, each
-    a parameter dict as the reference's layer pytree."""
+    """One decoder layer's weights: ``ln1``, ``attn``, ``ln2`` and ``mlp``
+    or, for an MoE config, ``moe`` (``w_router [D, E]``, ``wi_gate`` and
+    ``wi_up [E, D, F]``, ``wo [E, F, D]``, and with a dense residual its
+    SwiGLU ``residual``), each a parameter dict as the reference's layer
+    pytree."""
 
     def __init__(self, cfg: LMConfig, normal: Callable, ones: Callable):
         super().__init__()
@@ -100,7 +107,16 @@ class Block(nn.Module):
         self.attn = nn.ParameterDict({
             "wq": normal(d, h, dh), "wk": normal(d, k, dh), "wv": normal(d, k, dh), "wo": normal(h, dh, d),
         })
-        self.mlp = nn.ParameterDict({"wi_gate": normal(d, f), "wi_up": normal(d, f), "wo": normal(f, d)})
+        if cfg.moe is None:
+            self.mlp = nn.ParameterDict({"wi_gate": normal(d, f), "wi_up": normal(d, f), "wo": normal(f, d)})
+            return
+        e = cfg.moe.num_experts
+        moe = {"w_router": normal(d, e), "wi_gate": normal(e, d, f), "wi_up": normal(e, d, f),
+               "wo": normal(e, f, d)}
+        if cfg.moe.dense_residual:
+            moe["residual"] = nn.ParameterDict(
+                {"wi_gate": normal(d, f), "wi_up": normal(d, f), "wo": normal(f, d)})
+        self.moe = nn.ParameterDict(moe)
 
 
 class TransformerLM(nn.Module):
@@ -112,8 +128,6 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(f"{cfg.name}: MoE blocks (layers/moe.py) are not ported yet")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
@@ -138,7 +152,8 @@ class TransformerLM(nn.Module):
 def params_from_jax(cfg: LMConfig, tree: dict) -> dict[str, torch.Tensor]:
     """The state dict of :class:`TransformerLM` holding the numbers of the
     reference's ``init_params(cfg, key)`` tree, given as nested dicts of
-    numpy arrays with the layers stacked on axis 0; load it with
+    numpy arrays with the layers stacked on axis 0 (an MoE layer's
+    ``moe`` group nests its ``residual``); load it with
     ``model.load_state_dict``, which casts each matrix to ``cfg.dtype``."""
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
     state = {
@@ -146,11 +161,16 @@ def params_from_jax(cfg: LMConfig, tree: dict) -> dict[str, torch.Tensor]:
         "lm_head": t(tree["lm_head"]),
         "final_norm.scale": t(tree["final_norm"]["scale"]),
     }
-    layers = tree["layers"]
-    for i in range(cfg.n_layers):
-        for group in ("ln1", "ln2", "attn", "mlp"):
-            for name, stacked in layers[group].items():
-                state[f"layers.{i}.{group}.{name}"] = t(stacked[i])
+    def flat(prefix: str, group: dict):
+        for name, sub in group.items():
+            if isinstance(sub, dict):
+                yield from flat(f"{prefix}{name}.", sub)
+            else:
+                yield f"{prefix}{name}", sub
+
+    for name, stacked in flat("", tree["layers"]):
+        for i in range(cfg.n_layers):
+            state[f"layers.{i}.{name}"] = t(stacked[i])
     return state
 
 
@@ -170,7 +190,10 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, device=None)
 
 
 def _mlp_residual(cfg: LMConfig, layer: Block, y: torch.Tensor) -> torch.Tensor:
-    return y + swiglu(layer.mlp, rmsnorm(layer.ln2, y, eps=cfg.norm_eps))
+    h = rmsnorm(layer.ln2, y, eps=cfg.norm_eps)
+    if cfg.moe is None:
+        return y + swiglu(layer.mlp, h)
+    return y + moe_block(layer.moe, h, cfg.moe)[0]
 
 
 def _out_proj(att: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:

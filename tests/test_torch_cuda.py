@@ -39,6 +39,7 @@ from repro_torch.kernels.spmv import (  # noqa: E402
     spmv_tiles,
 )
 from repro_torch.layers import embedding as layers  # noqa: E402
+from repro_torch.layers import moe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.recsys import FieldSpec, TwoTower, TwoTowerConfig  # noqa: E402
 
@@ -537,13 +538,13 @@ def test_two_tower_on_card_equals_cpu(cuda):
 
 
 @pytest.mark.parametrize("dh", [32, 64, 128])
-@pytest.mark.parametrize("h,kh", [(4, 4), (32, 4), (48, 1)])
+@pytest.mark.parametrize("h,kh", [(4, 4), (32, 4), (48, 1), (48, 8), (56, 8)])
 @pytest.mark.parametrize("s", [1, 64, 127, 128, 129, 200, 1000])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_kernel_matches_plain(cuda, dh, h, kh, s, dtype):
-    """G = H / K of 1, 8 and 48; S of one key, one float32 tile, a ragged
-    128-row block, exactly one, the first row past it, a ragged fourth
-    float32 tile, and many tiles."""
+    """G = H / K of 1, 8, 48, and grok-1's 6 and arctic's 7; S of one key,
+    one float32 tile, a ragged 128-row block, exactly one, the first row
+    past it, a ragged fourth float32 tile, and many tiles."""
     g = torch.Generator(device=cuda).manual_seed(s * 7 + dh + h)
     dt = getattr(torch, dtype)
     q = torch.randn(2, s, h, dh, device=cuda, generator=g).to(dt)
@@ -618,6 +619,59 @@ def test_prefill_on_card_launches_the_kernel_and_equals_cpu(cuda):
     nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
     step, cache = tf.decode_step(cfg, card, nxt, cache)
     assert step.shape == (2, cfg.vocab) and cache["len"].tolist() == [78, 78]
+
+
+def _moe_case(residual: bool, seed: int):
+    rng = np.random.default_rng(seed)
+    d, f, e = 64, 96, 4
+    n = lambda *shape: torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(np.float32))  # noqa: E731
+    w = {"w_router": n(d, e), "wi_gate": n(e, d, f), "wi_up": n(e, d, f), "wo": n(e, f, d)}
+    if residual:
+        w["residual"] = {"wi_gate": n(d, f), "wi_up": n(d, f), "wo": n(f, d)}
+    return w, torch.from_numpy(rng.standard_normal((4, 32, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dispatch,groups", [("dense", 1), ("gather", 1), ("gather", 16)])
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_block_on_card_equals_cpu(cuda, dispatch, groups, cf):
+    """The same routing (experts and the dense keep rule) and, in float32,
+    the same outputs as on the CPU, with capacity binding (0.5) and not."""
+    w, x = _moe_case(True, 5)
+    cfg = moe.MoEConfig(num_experts=4, capacity_factor=cf, dispatch=dispatch, dispatch_groups=groups,
+                        dense_residual=True)
+    to = lambda tree: {k: to(v) if isinstance(v, dict) else v.to(cuda) for k, v in tree.items()}  # noqa: E731
+    _, _, idx = moe.route(w, x.reshape(-1, 64), cfg)
+    _, _, idx_card = moe.route(to(w), x.reshape(-1, 64).to(cuda), cfg)
+    assert torch.equal(idx_card.cpu(), idx)
+    assert torch.equal(moe.dense_positions(idx_card, 4).cpu(), moe.dense_positions(idx, 4))
+    want, want_aux = moe.moe_block(w, x, cfg)
+    got, aux = moe.moe_block(to(w), x.to(cuda), cfg)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)
+
+
+def test_moe_prefill_on_card_launches_the_kernel_and_equals_cpu(cuda):
+    """A small grok-like config at a head dim the kernel takes (64): one
+    launch a layer, logits and caches as on the CPU, then a decode step."""
+    cfg = tf.LMConfig(name="card-moe", n_layers=2, d_model=128, n_heads=6, n_kv_heads=1, head_dim=64,
+                      d_ff=256, vocab=300, dtype=torch.float32, block_kv=16,
+                      moe=moe.MoEConfig(num_experts=4, capacity_factor=1.0, dense_residual=True))
+    cpu = tf.TransformerLM(cfg, seed=3, device="cpu")
+    card = tf.TransformerLM(cfg, seed=4, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 77)).astype(np.int32))
+    before = flash_attention_cuda.launches
+    logits, cache = tf.prefill(cfg, card, toks.to(cuda), 80)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    want, want_cache = tf.prefill(cfg, cpu, toks, 80)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(cache["k"].cpu(), want_cache["k"], rtol=1e-4, atol=1e-5)
+    nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+    step, cache = tf.decode_step(cfg, card, nxt, cache)
+    want_step, _ = tf.decode_step(cfg, cpu, nxt.cpu(), want_cache)
+    torch.testing.assert_close(step.cpu(), want_step, rtol=1e-4, atol=1e-5)
 
 
 def test_serving_engine_drains_on_card(cuda):

@@ -109,8 +109,11 @@ def test_model_init_is_seeded_and_refuses_cpu_without_device(monkeypatch):
         tf.TransformerLM(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tf.init_cache(cfg, 1, 4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tf.TransformerLM(dataclasses.replace(cfg, moe=object()), device="cpu")
+    # an MoE config builds its experts in place of the MLP
+    moe_cfg = get_arch("grok-1-314b").make_smoke_config()
+    moe_model = tf.TransformerLM(moe_cfg, seed=4, device="cpu")
+    assert not hasattr(moe_model.layers[0], "mlp")
+    assert moe_model.layers[0].moe["wi_gate"].shape == (moe_cfg.moe.num_experts, moe_cfg.d_model, moe_cfg.d_ff)
 
 
 # ---------------- prefill and decode ----------------
@@ -284,8 +287,10 @@ def test_lm_shapes_equal_the_reference():
 
 
 def test_registry_holds_the_lm_archs():
-    assert PORTED_ARCHS == ["granite-34b", "tinyllama-1.1b", "stablelm-1.6b", "two-tower-retrieval"]
-    for arch in LM_ARCHS:
+    assert PORTED_ARCHS == ["granite-34b", "tinyllama-1.1b", "stablelm-1.6b", "two-tower-retrieval",
+                            "grok-1-314b", "arctic-480b"]
+    for arch in LM_ARCHS + ["grok-1-314b", "arctic-480b"]:
         assert get_arch(arch).ARCH_ID == arch
+    assert get_arch("arctic-480b").make_config().moe.dense_residual
     with pytest.raises(KeyError, match="not ported"):
-        get_arch("grok-1-314b")
+        get_arch("schnet")
