@@ -7,8 +7,9 @@ It needs one CUDA device and runs the port's paths at full size: the
 graph engine at RMAT scale 20, on the SNAP surrogates at the SNAP graphs'
 own sizes and under live edge ingest at RMAT scale 20, the two-tower
 retrieval server at the full width of ``make_config()`` (18.54 GB of
-tables), TinyLlama-1.1B serving at full width and depth, and MoE serving
-(grok-1, arctic) at full width with depth cut. For a quick check at small
+tables), TinyLlama-1.1B serving at full width and depth, MoE serving
+(grok-1, arctic) at full width with depth cut, and TinyLlama-1.1B training
+at full width and depth. For a quick check at small
 sizes run ``tests/test_torch_cuda.py``. Phases, each raising on failure:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
@@ -98,7 +99,25 @@ sizes run ``tests/test_torch_cuda.py``. Phases, each raising on failure:
     served shape, timed beside ``scaled_dot_product_attention``; (d) one
     launch a layer. (token, choice) pairs dropped per layer, a profiled
     prefill and decode step and the peak memory are printed;
-11. isolation — neither JAX nor the JAX package was imported.
+11. LM training — with arctic freed: TinyLlama-1.1B at full width and depth
+    (``make_config()``: float32 masters, bf16 compute, AdamW, remat, 8
+    microbatches; ``train_4k``'s sequence of 4096, the batch cut from 256
+    to 16) on ``TokenStream(seed=0)``. (a) the attention's gradient
+    (``FlashAttention``: the kernel's forward, the plain blocked backward)
+    against autograd through the kernel's plain version at TinyLlama's and
+    grok-1's heads, float32 and bf16, and the kernel's forward, the
+    backward and both together at the trained shape timed beside the plain
+    version and ``scaled_dot_product_attention``; (b) step 0's loss and
+    gradient tree on one microbatch through the kernel path and through the
+    plain-attention path, each against a float32 step (loss within a bf16
+    step; gradients no further from it than the plain path's, by the LM
+    phase's noise ratios); (c) ``train_lm`` for 6 steps with a checkpoint
+    every 3 (the loss falls), and a run stopped after 3 and resumed whose
+    losses and weights equal the uninterrupted run's; (d) 352 flash
+    launches a step (22 layers × 8 microbatches × 2 under remat), and one
+    more step profiled (it must show the tensor-core kernel): step seconds,
+    tokens/s, the device's idle share, the largest kernels, the peak memory;
+12. isolation — neither JAX nor the JAX package was imported.
 
 The kernels' times go out as one JSON line. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -207,6 +226,32 @@ MOE_RTOL, MOE_ATOL_RMS = 2**-6, 2**-5
 # last token routed alike in every layer stay within this RMS of the plain
 # path's, relative to their own RMS
 MOE_FLIP_SHARE, MOE_LOGIT_REL_RMS = 0.05, 0.05
+
+# LM training at TinyLlama-1.1B's full width and depth: float32 masters,
+# bf16 compute, AdamW (the config's OPTIMIZER), train_4k's sequence and the
+# config's 8 microbatches, the batch cut from 256 to 16 (two sequences a
+# microbatch); train_lm runs 6 steps with a checkpoint every 3, and a second
+# run stops after 3 and resumes
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY = 16, 6, 3
+# (a) the attention's gradient (the kernel's forward, the plain blocked
+# backward) against autograd through the kernel's plain version, at (B, S,
+# H, K, Dh): TinyLlama's heads and grok-1's. float32: the same float32 math
+# in another order, within 1e-4 of each gradient's largest entry. bf16: both
+# cast float32 gradients to bf16, and the backward's D = rowsum(dO * O)
+# reads the kernel's bf16 output, which may sit a bf16 step from the plain
+# one: within two bf16 steps (2**-6) relative, 1e-2 of the largest entry
+GRAD_SHAPES = ((1, 2048, 32, 4, 64), (1, 2048, 48, 8, 128))
+GRAD_F32_ATOL_REL, GRAD_BF16_RTOL, GRAD_BF16_ATOL_REL = 1e-4, 2**-6, 1e-2
+# (b) step 0's loss on one microbatch through each bf16 path within a bf16
+# step (2**-8) of the float32 loss: a mean of 8192 float32 cross-entropies
+# of bf16 logits; the gradients by NOISE_RMS_RATIO / NOISE_MAX_RATIO
+TRAIN_LOSS_RTOL = 2**-8
+# (c) the resumed run against the uninterrupted one: the same steps from
+# the same bits (a checkpoint holds float32 exactly); where a sum's order
+# changes from run to run (atomics), float32 noise of ~1e-7 relative in a
+# gradient moves AdamW's step by as much relative, ~1e-10 of a weight, and
+# the losses by less than RESUME_LOSS_RTOL
+RESUME_LOSS_RTOL, RESUME_PARAM_ATOL = 1e-4, 1e-5
 
 TIMED_BATCHES, TIMED_PER_BATCH = 5, 20
 # published H100 peaks (NVIDIA data sheets): HBM bytes/s by part, the
@@ -1959,6 +2004,231 @@ def moe_path(dev: torch.device, bw: float) -> list[dict]:
     return out
 
 
+def hold_flash_gradient(dev: torch.device, shape: tuple, dtype: torch.dtype, block_kv: int) -> dict:
+    """Check (a): dq, dk, dv of ``FlashAttention`` (the kernel's forward,
+    the plain blocked backward) against autograd through the kernel's plain
+    version, on the same inputs."""
+    from repro_torch.kernels.attention import FlashAttention, flash_attention_plain
+
+    b, s, h, kh, dh = shape
+    g = torch.Generator(device=dev).manual_seed(SEED + dh)
+    q = torch.randn(b, s, h, dh, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(b, s, kh, dh, device=dev, generator=g).to(dtype) for _ in range(2))
+    dout = torch.randn(b, s, h, dh, device=dev, generator=g).to(dtype)
+    got = torch.autograd.grad(FlashAttention.apply(*(x.requires_grad_() for x in (q, k, v)), block_kv),
+                              (q, k, v), dout)
+    want = torch.autograd.grad(flash_attention_plain(q, k, v, block_kv=block_kv), (q, k, v), dout)
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        scale = float(w.float().abs().max())
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, rtol=0, atol=GRAD_F32_ATOL_REL * scale)
+        else:
+            torch.testing.assert_close(a.float(), w.float(), rtol=GRAD_BF16_RTOL, atol=GRAD_BF16_ATOL_REL * scale)
+        errs[name] = float((a.float() - w.float()).abs().max()) / scale
+    row = {"shape": f"B={b} S={s} H={h} K={kh} Dh={dh} {str(dtype).split('.')[-1]}",
+           "max_abs_err_over_largest": errs}
+    log(json.dumps({"flash_gradient_check": row}))
+    return row
+
+
+def time_flash_training(dev: torch.device, bw: float, shape: tuple, block_kv: int) -> dict:
+    """The flash kernel at the trained shape ``(B, S, H, K, Dh)`` (a
+    microbatch of train_4k, TinyLlama's heads) in bf16: its forward and the Function's forward + backward and
+    backward alone, beside the plain version (autograd through it) and
+    ``scaled_dot_product_attention`` (library, ``enable_gqa``), each with
+    its bound at the bf16 tensor-core rate: the forward's two products over
+    the causal half, the backward's five (FlashAttention-2's count: S
+    recomputed, dV, dP, dQ, dK)."""
+    from repro_torch.kernels.attention import FlashAttention, flash_attention_cuda, flash_attention_plain
+
+    b, s, h, kh, dh = shape
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn(b, s, h, dh, device=dev, generator=g, dtype=torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(b, s, kh, dh, device=dev, generator=g, dtype=torch.bfloat16).requires_grad_()
+            for _ in range(2))
+    dout = torch.randn(b, s, h, dh, device=dev, generator=g, dtype=torch.bfloat16)
+    ins = (q, k, v)
+    fwd_ops = 2 * dh * s * (s + 1) * b * h
+    io_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())        # q, k, v in; o out
+    bwd_bytes = 2 * (3 * q.numel() + 2 * (k.numel() + v.numel()))  # q, k, v, o, dO in; dq, dk, dv out
+    out = FlashAttention.apply(*ins, block_kv)
+    slow = dict(warmup=1, batches=3, per_batch=1)
+    row = {
+        "shape": f"train_4k microbatch: B={b} S={s} H={h} K={kh} Dh={dh} bf16",
+        "ms": time_ms(lambda: flash_attention_cuda(q.detach(), k.detach(), v.detach())),
+        "plain_ms": time_ms(lambda: flash_attention_plain(q.detach(), k.detach(), v.detach(), block_kv=block_kv),
+                            batches=5, per_batch=2),
+        "library_ms": time_ms(lambda: sdpa_library(q.detach(), k.detach(), v.detach())),
+        "backward_ms": time_ms(lambda: torch.autograd.grad(out, ins, dout, retain_graph=True), **slow),
+        "fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(FlashAttention.apply(*ins, block_kv), ins, dout), **slow),
+        "plain_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+            flash_attention_plain(*ins, block_kv=block_kv), ins, dout), **slow),
+        "library_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(sdpa_library(*ins), ins, dout)),
+        "flop": fwd_ops, "backward_flop": 2.5 * fwd_ops,
+    }
+    row["bound_ms"], row["bound_by"] = bound_ms(io_bytes, fwd_ops, bw, BF16_TENSOR_OPS_PER_S)
+    row["backward_bound_ms"], row["backward_bound_by"] = bound_ms(bwd_bytes, 2.5 * fwd_ops, bw, BF16_TENSOR_OPS_PER_S)
+    row["fwd_bwd_bound_ms"] = row["bound_ms"] + row["backward_bound_ms"]
+    del out
+    log(json.dumps({"flash_training_times": row}))
+    return row
+
+
+def grads_of(tf, cfg, model, tokens, labels, attention=None) -> tuple[float, dict]:
+    """One microbatch's loss and its gradient tree (the reference's leaves)."""
+    model.zero_grad(set_to_none=True)
+    loss = tf.loss_fn(cfg, model, tokens, labels, attention=attention)
+    loss.backward()
+    grads = tf.params_tree(model, grads=True)
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def lm_train_path(dev: torch.device, bw: float) -> dict:
+    """Phase 11: TinyLlama-1.1B training at full width and depth. Checks
+    (a) the attention's gradient, (b) step 0's loss and gradients through
+    the kernel path and the plain-attention path against a float32 step,
+    (c) ``train_lm`` for 6 steps and a run stopped after 3 and resumed, the
+    loss falling, (d) the flash launches a step and a profiled step."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.attention import FlashAttention, flash_attention_cuda, flash_attention_plain
+    from repro_torch.launch.steps import LM_SHAPES, lm_train_step
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import transformer as tf
+    from repro_torch._tree import tree_leaves, tree_paths
+    from repro_torch.optim import OptimizerConfig
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    arch = get_arch(LM_ARCH)
+    cfg = arch.make_config()
+    seq = LM_SHAPES["train_4k"]["seq"]
+    mb_rows = TRAIN_BATCH // cfg.microbatches
+    assert arch.OPTIMIZER == "adamw" and cfg.remat and cfg.microbatches == 8
+
+    # (a) the attention's gradient, and the kernel's training-shape times ------
+    grad_checks = [hold_flash_gradient(dev, shape, dtype, cfg.block_kv)
+                   for shape in GRAD_SHAPES for dtype in (torch.float32, torch.bfloat16)]
+    times = time_flash_training(dev, bw, (mb_rows, seq, cfg.n_heads, cfg.n_kv_heads, cfg.dh), cfg.block_kv)
+    torch.cuda.empty_cache()
+    checks_s = {"a": time.perf_counter() - t_phase}
+
+    # (b) step 0 on one microbatch: kernel path, plain path, float32 ---------
+    def plain_fwd(q, k, v):
+        return flash_attention_plain(q, k, v, block_kv=cfg.block_kv)
+
+    def plain_attention(q, k, v):  # the plain forward, the same backward
+        return FlashAttention.apply(q, k, v, cfg.block_kv, plain_fwd)
+
+    batch = next(TokenStream(cfg.vocab, TRAIN_BATCH, seq, seed=0))
+    tokens = torch.from_numpy(batch["tokens"][:mb_rows]).to(dev)
+    labels = torch.from_numpy(batch["labels"][:mb_rows]).to(dev)
+    model = tf.TransformerLM(cfg, seed=SEED, device=dev, masters=True)
+    flash_attention_cuda.launches = 0
+    loss_k, g_kernel = grads_of(tf, cfg, model, tokens, labels)
+    if flash_attention_cuda.launches != 2 * cfg.n_layers:
+        raise AssertionError(f"one microbatch launched the kernel {flash_attention_cuda.launches} times")
+    loss_p, g_plain = grads_of(tf, cfg, model, tokens, labels, plain_attention)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    loss_32, g_32 = grads_of(tf, cfg32, model, tokens, labels, plain_fwd)  # autograd through the plain version
+    del model
+    names = [name for name, _ in tree_paths(g_32)]
+    noise = {}
+    for name, gk, gp, g32 in zip(names, tree_leaves(g_kernel), tree_leaves(g_plain), tree_leaves(g_32)):
+        dk, dp = gk.float() - g32, gp.float() - g32
+        noise[name] = {"kernel": (float(dk.square().mean().sqrt()), float(dk.abs().max())),
+                       "plain": (float(dp.square().mean().sqrt()), float(dp.abs().max())),
+                       "rms_float32": float(g32.square().mean().sqrt())}
+    del g_kernel, g_plain, g_32
+    checks_s["b"] = time.perf_counter() - t_phase - checks_s["a"]
+    log(json.dumps({"lm_train_step0": {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_float32": loss_32,
+                                       "grad_deviation_from_float32": noise}}))
+    for what, loss in (("kernel", loss_k), ("plain", loss_p)):
+        if not abs(loss - loss_32) <= TRAIN_LOSS_RTOL * abs(loss_32):
+            raise AssertionError(f"step 0's loss through the {what} path {loss} is not within a bf16 step of {loss_32}")
+    for name, d in noise.items():
+        (rms_k, max_k), (rms_p, max_p) = d["kernel"], d["plain"]
+        if rms_k > NOISE_RMS_RATIO * rms_p or max_k > NOISE_MAX_RATIO * max_p:
+            raise AssertionError(f"the gradient of {name}: the kernel path strays further from float32 "
+                                 "than the plain path")
+    torch.cuda.empty_cache()
+
+    # (c) + (d) the main path: train_lm, 6 steps with checkpoints every 3 -------
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=seq, ckpt_every=TRAIN_CKPT_EVERY, log_every=1, device=dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        full = train_lm(cfg, ckpt_dir=f"{tmp}/full", **kw)
+        full_s = time.perf_counter() - t0
+        launches = flash_attention_cuda.launches
+        per_step = launches / TRAIN_STEPS
+        if per_step != 2 * cfg.n_layers * cfg.microbatches:
+            raise AssertionError(f"{launches} flash launches in {TRAIN_STEPS} steps, "
+                                 f"not {2 * cfg.n_layers * cfg.microbatches} a step")
+        losses = dict(full["losses"])
+        if not all(np.isfinite(list(losses.values()))) or not losses[TRAIN_STEPS - 1] < losses[0]:
+            raise AssertionError(f"the loss did not fall: {losses}")
+        want, step_s, tokens_per_s = full["params"], full["step_s"], full["tokens_per_s"]
+        del full
+        gc.collect()
+        shutil.rmtree(f"{tmp}/full")  # 13.2 GB a checkpoint: make room for the second run's
+        t0 = time.perf_counter()
+        train_lm(cfg, ckpt_dir=f"{tmp}/cut", stop_after=TRAIN_CKPT_EVERY, **kw)
+        gc.collect()
+        resumed = train_lm(cfg, ckpt_dir=f"{tmp}/cut", resume=True, **kw)
+        resume_s = time.perf_counter() - t0
+        got_losses = dict(resumed["losses"])
+        loss_diff = max(abs(got_losses[s_] - losses[s_]) / abs(losses[s_]) for s_ in got_losses)
+        param_diff = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(resumed["params"]), tree_leaves(want)))
+        log(f"lm training resume: losses at steps {sorted(got_losses)} within {loss_diff:.3g} relative, "
+            f"largest weight difference {param_diff:.3g} (allowed {RESUME_LOSS_RTOL}, {RESUME_PARAM_ATOL})")
+        if sorted(got_losses) != list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS)) or loss_diff > RESUME_LOSS_RTOL \
+                or param_diff > RESUME_PARAM_ATOL:
+            raise AssertionError("the resumed run does not reproduce the uninterrupted one")
+        del want
+
+        # one more step, profiled: the device's share and the largest kernels
+        model, opt_state = resumed["model"], resumed["opt_state"]
+        del resumed
+        opt_cfg = OptimizerConfig(lr=3e-4, warmup_steps=min(20, TRAIN_STEPS // 5 + 1), decay_steps=TRAIN_STEPS)
+        step = lm_train_step(cfg, opt_cfg)
+        nxt = next(TokenStream(cfg.vocab, TRAIN_BATCH, seq, seed=0, step=TRAIN_STEPS))
+        nxt = {k_: torch.from_numpy(v_).to(dev) for k_, v_ in nxt.items()}
+        # the profiler loses a whole window now and then: a lost one is a step again
+        by_name, pwall = device_time_by_kernel(lambda: step(model, opt_state, nxt), tries=3)
+    busy = sum(by_name.values())
+    flash_busy = sum(v_ for k_, v_ in by_name.items() if "flash_attention" in k_)
+    if not any("flash_attention_wgmma_kernel" in k_ for k_ in by_name):
+        raise AssertionError("the profiled train step ran no tensor-core flash kernel")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
+    record = {
+        "arch": cfg.name, "params": cfg.param_count(), "batch": TRAIN_BATCH, "seq": seq,
+        "microbatches": cfg.microbatches, "remat": cfg.remat, "optimizer": arch.OPTIMIZER,
+        "reduced": {"batch": "256 -> 16 (train_4k's; two sequences a microbatch)"},
+        "gradient_checks": grad_checks,
+        "step0": {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_float32": loss_32},
+        "losses": losses, "resumed_losses": got_losses,
+        "resume_max_loss_rel_diff": loss_diff, "resume_max_param_diff": param_diff,
+        "flash_launches": launches, "flash_launches_per_step": per_step,
+        "checks_a_s": checks_s["a"], "checks_b_s": checks_s["b"],
+        "train_lm_s": full_s, "stop_and_resume_s": resume_s,
+        "step_s_all": step_s, "step_s_median": float(np.median(step_s)),
+        "tokens_per_s_median_step": TRAIN_BATCH * seq / float(np.median(step_s)),
+        "train_lm_tokens_per_s": tokens_per_s,
+        "profiled_step": {"wall_s": pwall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / (pwall * 1e3),
+                          "flash_attention_ms": flash_busy,
+                          "top_kernels_ms": {short_kernel_name(k_, 70): v_ for k_, v_ in top}},
+        "peak_bytes": torch.cuda.max_memory_allocated(), "phase_s": time.perf_counter() - t_phase,
+    }
+    log(json.dumps({"lm_train_path": record}))
+    return {"record": record, "times": times, "launches_per_step": per_step}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2042,7 +2312,16 @@ def main() -> int:
     flash["shapes"] += [r["flash_row"] for r in moe_runs]
     flash["max_abs_err"] = max(flash["max_abs_err"], *(r["flash_row"]["max_abs_err"]["bf16"] for r in moe_runs))
 
-    # 11. isolation -------------------------------------------------------------
+    # 11. LM training at full width --------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()  # arctic is gone; TinyLlama's masters, moments and grads need the room
+    t0 = time.perf_counter()
+    train = lm_train_path(dev, bw)
+    log(f"lm training phase: {time.perf_counter() - t0:.1f} s")
+    flash["launches_by_phase"]["lm_train_tinyllama_per_step"] = train["launches_per_step"]
+    flash["shapes"].append(train["times"])
+
+    # 12. isolation -------------------------------------------------------------
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     if leaked:
         raise AssertionError(f"imported the JAX side: {leaked}")

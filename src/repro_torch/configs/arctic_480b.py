@@ -1,6 +1,6 @@
 """arctic-480b [hf:Snowflake/snowflake-arctic-base; hf]: MoE 128 experts
 top-2 + dense residual. 35L d_model=7168 56H (GQA kv=8) d_ff=4864
-vocab=32000. ``make_cell`` waits for the training slice."""
+vocab=32000. ``make_cell`` waits for the dry-run slice."""
 from ..layers.moe import MoEConfig
 from ..models.transformer import LMConfig
 from .lm_common import SHAPES as SHAPES, smoke_lm

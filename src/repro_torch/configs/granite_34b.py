@@ -1,6 +1,6 @@
 """granite-34b [arXiv:2405.04324; hf]: dense llama-arch code model.
 88L d_model=6144 48H (GQA kv=1) d_ff=24576 vocab=49152. ``make_cell`` waits
-for the training slice."""
+for the dry-run slice."""
 from ..models.transformer import LMConfig
 from .lm_common import SHAPES as SHAPES, smoke_lm
 

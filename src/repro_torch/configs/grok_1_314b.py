@@ -1,6 +1,6 @@
 """grok-1-314b [hf:xai-org/grok-1; unverified]: MoE 8 experts top-2.
 64L d_model=6144 48H (GQA kv=8) d_ff=32768 vocab=131072. ``make_cell``
-waits for the training slice."""
+waits for the dry-run slice."""
 from ..layers.moe import MoEConfig
 from ..models.transformer import LMConfig
 from .lm_common import SHAPES as SHAPES, smoke_lm

@@ -1,5 +1,5 @@
 """Shared plumbing for the LM arch configs. The reference's ``lm_cell``
-(the training and dry-run cell programs) waits for the training slice."""
+(the training and dry-run cell programs) waits for the dry-run slice."""
 from __future__ import annotations
 
 import dataclasses

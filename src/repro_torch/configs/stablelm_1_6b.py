@@ -1,6 +1,6 @@
 """stablelm-1.6b [hf:stabilityai/stablelm-2-1_6b; unverified]: dense MHA
 (kv=32 == heads). 24L d_model=2048 32H d_ff=5632 vocab=100352. ``make_cell``
-waits for the training slice."""
+waits for the dry-run slice."""
 from ..models.transformer import LMConfig
 from .lm_common import SHAPES as SHAPES, smoke_lm
 

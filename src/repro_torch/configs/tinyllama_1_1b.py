@@ -1,6 +1,6 @@
 """tinyllama-1.1b [arXiv:2401.02385; hf]: llama2-arch small.
 22L d_model=2048 32H (GQA kv=4) d_ff=5632 vocab=32000. ``make_cell`` waits
-for the training slice."""
+for the dry-run slice."""
 from ..models.transformer import LMConfig
 from .lm_common import SHAPES as SHAPES, smoke_lm
 

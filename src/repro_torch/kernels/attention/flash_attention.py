@@ -1,5 +1,6 @@
-"""Causal flash attention (forward): the CUDA kernels' wrapper and their plain
-version.
+"""Causal flash attention: the CUDA kernels' wrapper (the forward), their plain
+version, and the plain blocked backward that ``ops.FlashAttention`` takes
+for the gradient.
 
 Replaces ``repro/kernels/attention/flash_attention.py::flash_attention_pallas``.
 Both functions take the layer's layout as it is, ``q [B, S, H, Dh]`` and
@@ -71,6 +72,77 @@ def flash_attention_plain(
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]                                 # [B,K,G,S,Dh]
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+
+
+def flash_attention_backward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+    *, block_kv: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of the blocked online softmax (dq, dk, dv in the inputs'
+    types), in plain PyTorch on any device; float32 throughout, the query
+    heads grouped onto their KV head (row ``s·G + g`` of a ``[B, K, S·G,
+    Dh]`` view), over KV blocks of ``block_kv`` keys. The TPU kernel had no
+    backward: the reference differentiates its pure-JAX twin.
+
+    A first pass recomputes each row's max and sum (the forward returns
+    neither), giving ``lse = m + log l``. Then with ``D = rowsum(dO ∘ O)``,
+    per KV block ``[c0, c1)`` over the query rows from ``c0`` on (the rows
+    before it see none of the block's keys): ``P = exp(S - lse)``,
+    ``dV = Pᵀ dO``, ``dS = P ∘ (dO Vᵀ - D)``, ``dQ += dS K · scale``,
+    ``dK = dSᵀ Q · scale``. Only the block's first ``c1 - c0`` positions
+    need the causal mask. Peak scratch: two ``[B, K, S·G, block_kv]``
+    float32 tensors."""
+    b, s, h, dh = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    scale = dh**-0.5
+
+    def rows(x):  # [B, S, H, Dh] -> [B, K, S·G, Dh] float32
+        return x.reshape(b, s, kh, g, dh).permute(0, 2, 1, 3, 4).reshape(b, kh, s * g, dh).float()
+
+    qs = rows(q) * scale
+    kt = k.float().permute(0, 2, 1, 3).contiguous()                     # [B,K,S,Dh]
+    vt = v.float().permute(0, 2, 1, 3).contiguous()
+    do = rows(dout)
+    # a position's rows are s·G .. s·G + G-1: within a block's first rows,
+    # row r sees key t (of the block) iff t <= r // G
+    r_pos = torch.arange(block_kv * g, device=q.device) // g
+    causal = torch.arange(block_kv, device=q.device)[None, :] <= r_pos[:, None]   # [bk·G, bk]
+
+    def scores(c0: int, c1: int) -> torch.Tensor:
+        sc = qs[:, :, c0 * g:] @ kt[:, :, c0:c1].transpose(-1, -2)       # [B,K,(S-c0)·G, c1-c0]
+        diag = sc[:, :, : (c1 - c0) * g]
+        diag.masked_fill_(~causal[: (c1 - c0) * g, : c1 - c0], NEG_INF)
+        return sc
+
+    m = torch.full((b, kh, s * g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kh, s * g), dtype=torch.float32, device=q.device)
+    for c0 in range(0, s, block_kv):
+        c1 = min(c0 + block_kv, s)
+        sc = scores(c0, c1)
+        m_old = m[:, :, c0 * g:]
+        m_new = torch.maximum(m_old, sc.amax(dim=-1))
+        l[:, :, c0 * g:] = l[:, :, c0 * g:] * torch.exp(m_old - m_new) + sc.sub_(m_new[..., None]).exp_().sum(-1)
+        m[:, :, c0 * g:] = m_new
+        del sc
+    lse = m + torch.log(l.clamp_min(1e-30))
+    delta = (do * rows(out)).sum(-1)                                     # [B,K,S·G]
+
+    dq = torch.zeros_like(qs)
+    dk = torch.empty_like(kt)
+    dv = torch.empty_like(vt)
+    for c0 in range(0, s, block_kv):
+        c1 = min(c0 + block_kv, s)
+        p = scores(c0, c1).sub_(lse[:, :, c0 * g:, None]).exp_()        # P
+        dov = do[:, :, c0 * g:]
+        dv[:, :, c0:c1] = p.transpose(-1, -2) @ dov
+        ds = (dov @ vt[:, :, c0:c1].transpose(-1, -2)).sub_(delta[:, :, c0 * g:, None]).mul_(p)
+        del p
+        dq[:, :, c0 * g:] += ds @ kt[:, :, c0:c1]
+        dk[:, :, c0:c1] = ds.transpose(-1, -2) @ qs[:, :, c0 * g:]
+        del ds
+    dq = (dq * scale).reshape(b, kh, s, g, dh).permute(0, 2, 1, 3, 4).reshape(b, s, h, dh)
+    return dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype)
 
 
 def _lib() -> ctypes.CDLL:

@@ -6,8 +6,11 @@ The blocked functions are the reference's pure-JAX twin of its Pallas flash
 kernel. Here they dispatch on the tensors' device: on CUDA they launch the
 hand-written kernel (``kernels.attention``), which takes grouped KV heads
 and any sequence length itself; on the CPU they run its plain version, the
-blocked online softmax. ``decode_attention`` and ``full_causal_attention``
-are plain torch, as the reference's are plain JAX.
+blocked online softmax. With gradients on they go through
+``kernels.attention.FlashAttention``: the same forward, and the gradient of
+the blocked online softmax in plain PyTorch (the reference differentiates
+its pure-JAX twin). ``decode_attention`` and ``full_causal_attention`` are
+plain torch, as the reference's are plain JAX.
 """
 from __future__ import annotations
 
@@ -105,15 +108,22 @@ def attention_layer(
     block_kv: int = 512,
     use_blocked: bool = True,
     grouped_gqa: bool = True,
+    attention=None,
 ) -> torch.Tensor:
+    """``attention(q [B,S,H,Dh], k [B,S,K,Dh], v) -> [B,S,H,Dh]`` replaces
+    ``blocked_causal_attention_gqa`` on the blocked grouped path (as
+    ``prefill``'s ``attention=`` does)."""
     q, k, v = gqa_project(params, x)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     groups = q.shape[2] // n_kv_heads
     if use_blocked and grouped_gqa and groups >= 1:
         b, s, h, dh = q.shape
-        qg = q.reshape(b, s, n_kv_heads, groups, dh)
-        attn = blocked_causal_attention_gqa(qg, k, v, block_kv=block_kv)
+        if attention is not None:
+            attn = attention(q, k, v)
+        else:
+            qg = q.reshape(b, s, n_kv_heads, groups, dh)
+            attn = blocked_causal_attention_gqa(qg, k, v, block_kv=block_kv)
     else:
         k = repeat_kv(k, groups)
         v = repeat_kv(v, groups)

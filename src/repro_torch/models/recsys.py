@@ -7,8 +7,8 @@ the card); the towers' matrix products stay ``nn.Linear``, as the reference
 leaves them to XLA. Candidates are scored through ``kernels.scoring``.
 
 The reference's ``constrain`` (activation sharding) has no counterpart:
-the port runs on one device. The training loss waits for the training
-slice.
+the port runs on one device. The training loss waits for the recsys
+training slice.
 """
 from __future__ import annotations
 

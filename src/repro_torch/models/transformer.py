@@ -1,23 +1,33 @@
 """Decoder-only transformer LM (llama family): GQA + RoPE + SwiGLU, with a
-KV cache for prefill and decode.
+KV cache for prefill and decode, and the training forward and loss.
 
 :class:`TransformerLM` holds the weights in the reference's layouts
 (``wq``/``wk``/``wv`` ``[D, heads, Dh]``, ``wo`` ``[H, Dh, D]``, SwiGLU
 ``[D, F]``/``[F, D]``, ``embed`` ``[V, D]``, ``lm_head`` ``[D, V]``), one
-:class:`Block` per layer where the reference stacks layers on axis 0.
-The reference keeps float32 master weights and casts them to
-``cfg.dtype`` on every call; the port casts the matrices once, when they
-are made or loaded, and keeps the norm scales in ``cfg.param_dtype``. The
-values it computes with are identical.
+:class:`Block` per layer where the reference stacks layers on axis 0
+(:func:`params_tree` stacks them back; :func:`params_from_jax` takes such a
+tree apart). The reference keeps float32 master weights and casts them to
+``cfg.dtype`` on every call. For serving the port casts the matrices once,
+when they are made or loaded, and keeps the norm scales in
+``cfg.param_dtype`` (the values it computes with are identical); with
+``masters=True`` (training) every weight stays in ``cfg.param_dtype`` and
+carries a gradient, and :func:`forward` casts it on every call, as the
+reference does (a cast to the same type is no op, so ``forward`` takes
+either form).
 
 The prefill's attention is ``layers.attention.blocked_causal_attention_gqa``:
-the hand-written flash-attention kernel on the card. The reference's
-``constrain`` (activation sharding) and ``scan_unroll`` have no counterpart
-on one device. A layer's feed-forward block is the SwiGLU ``mlp`` or, when
+the hand-written flash-attention kernel on the card. Training takes the
+reference's choice per call (``_block``): the blocked attention, through
+``kernels.attention.FlashAttention`` (the kernel's forward, a plain
+PyTorch backward), where the sequence is longer than ``cfg.block_kv``, and
+``repeat_kv`` + ``full_causal_attention`` otherwise; ``cfg.remat`` maps to
+``torch.utils.checkpoint`` per layer. The reference's ``constrain``
+(activation sharding) and ``scan_unroll`` have no counterpart on one
+device. A layer's feed-forward block is the SwiGLU ``mlp`` or, when
 ``cfg.moe`` is set (grok-1, arctic), ``layers.moe.moe_block`` over the
 layer's ``moe`` weights; serving discards its auxiliary loss, as the
-reference does. Training (``forward``, ``loss_fn``) and the
-abstract/sharding helpers wait for later slices.
+reference does, and training adds it to the loss. The abstract/sharding
+helpers wait for the dry-run slice.
 """
 from __future__ import annotations
 
@@ -27,9 +37,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..graph.structure import resolve_device
-from ..layers.attention import blocked_causal_attention_gqa, decode_attention, gqa_project
+from ..layers.attention import attention_layer, blocked_causal_attention_gqa, decode_attention, gqa_project
 from ..layers.mlp import swiglu
 from ..layers.moe import MoEConfig, moe_block
 from ..layers.norms import rmsnorm
@@ -124,20 +135,24 @@ class TransformerLM(nn.Module):
     (matrices normal * 0.02, norm scales 1) from a ``torch.Generator``
     seeded with ``seed`` on the model's device, which is the card unless the
     caller names another. The numbers differ from the reference's (another
-    generator); :func:`params_from_jax` carries those across."""
+    generator); :func:`params_from_jax` carries those across. By default
+    the matrices are cast once to ``cfg.dtype`` and nothing carries a
+    gradient (serving); ``masters=True`` keeps every weight in
+    ``cfg.param_dtype`` with ``requires_grad`` (training)."""
 
-    def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None):
+    def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None, masters: bool = False):
         super().__init__()
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
+        matrix_dtype = cfg.param_dtype if masters else cfg.dtype
 
-        def normal(*shape) -> nn.Parameter:  # drawn in param_dtype, cast once
+        def normal(*shape) -> nn.Parameter:  # drawn in param_dtype
             w = torch.empty(shape, dtype=cfg.param_dtype, device=dev).normal_(generator=gen).mul_(0.02)
-            return nn.Parameter(w.to(cfg.dtype), requires_grad=False)
+            return nn.Parameter(w.to(matrix_dtype), requires_grad=masters)
 
         def ones(n) -> nn.Parameter:
-            return nn.Parameter(torch.ones(n, dtype=cfg.param_dtype, device=dev), requires_grad=False)
+            return nn.Parameter(torch.ones(n, dtype=cfg.param_dtype, device=dev), requires_grad=masters)
 
         self.embed = normal(cfg.vocab, cfg.d_model)
         self.lm_head = normal(cfg.d_model, cfg.vocab)
@@ -152,10 +167,14 @@ class TransformerLM(nn.Module):
 def params_from_jax(cfg: LMConfig, tree: dict) -> dict[str, torch.Tensor]:
     """The state dict of :class:`TransformerLM` holding the numbers of the
     reference's ``init_params(cfg, key)`` tree, given as nested dicts of
-    numpy arrays with the layers stacked on axis 0 (an MoE layer's
-    ``moe`` group nests its ``residual``); load it with
-    ``model.load_state_dict``, which casts each matrix to ``cfg.dtype``."""
-    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    numpy arrays (a JAX run's, or a checkpoint's) or of tensors (the
+    optimizer's, :func:`params_tree`'s) with the layers stacked on axis 0
+    (an MoE layer's ``moe`` group nests its ``residual``); load it with
+    ``model.load_state_dict``, which copies each weight into the model's
+    type (``cfg.dtype`` for a serving model's matrices, float32 masters)."""
+    def t(a) -> torch.Tensor:
+        return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+
     state = {
         "embed": t(tree["embed"]),
         "lm_head": t(tree["lm_head"]),
@@ -169,9 +188,96 @@ def params_from_jax(cfg: LMConfig, tree: dict) -> dict[str, torch.Tensor]:
                 yield f"{prefix}{name}", sub
 
     for name, stacked in flat("", tree["layers"]):
+        stacked = t(stacked)
         for i in range(cfg.n_layers):
-            state[f"layers.{i}.{name}"] = t(stacked[i])
+            state[f"layers.{i}.{name}"] = stacked[i]
     return state
+
+
+@torch.no_grad()
+def params_tree(model: TransformerLM, *, grads: bool = False) -> dict:
+    """The reference's parameter tree of ``model`` (``grads``: of its
+    ``.grad``s): ``embed``, ``lm_head``, ``final_norm``, and ``layers``
+    with each layer tensor stacked on axis 0 (new tensors, on the model's
+    device). These are the leaves the optimizer and the checkpoints see."""
+    def val(p: torch.Tensor) -> torch.Tensor:
+        return p.grad if grads else p
+
+    layers: dict = {}
+    for name, _ in model.layers[0].named_parameters():
+        *path, leaf = name.split(".")
+        node = layers
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = torch.stack([val(layer.get_parameter(name)) for layer in model.layers])
+    return {"embed": val(model.embed).clone(), "lm_head": val(model.lm_head).clone(),
+            "final_norm": {"scale": val(model.final_norm["scale"]).clone()}, "layers": layers}
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+def _cast(group, dtype) -> dict:
+    """A layer's weight group (nested) cast to ``dtype``: a copy per call
+    for float32 masters, the weights themselves when already of that type."""
+    return {k: _cast(v, dtype) if isinstance(v, nn.ParameterDict) else v.to(dtype) for k, v in group.items()}
+
+
+def _block(cfg: LMConfig, layer: Block, x: torch.Tensor, positions: torch.Tensor, attention=None):
+    h = rmsnorm(layer.ln1, x, eps=cfg.norm_eps)
+    h = attention_layer(
+        _cast(layer.attn, cfg.dtype),
+        h.to(cfg.dtype),
+        positions,
+        n_kv_heads=cfg.n_kv_heads,
+        rope_theta=cfg.rope_theta,
+        block_kv=cfg.block_kv,
+        use_blocked=x.shape[1] > cfg.block_kv,
+        attention=attention,
+    )
+    x = x + h
+    h2 = rmsnorm(layer.ln2, x, eps=cfg.norm_eps)
+    if cfg.moe:
+        h2, aux = moe_block(_cast(layer.moe, cfg.dtype), h2.to(cfg.dtype), cfg.moe)
+    else:
+        h2 = swiglu(_cast(layer.mlp, cfg.dtype), h2.to(cfg.dtype))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h2, aux
+
+
+def forward(cfg: LMConfig, model: TransformerLM, tokens: torch.Tensor, *, attention=None):
+    """tokens [B, S] → logits [B, S, V] (cfg.dtype), aux loss (float32, the
+    layers' MoE auxiliary losses summed). ``attention(q, k, v)`` replaces
+    the blocked attention, as in :func:`prefill`; with ``cfg.remat`` each
+    layer's activations are recomputed in the backward."""
+    b, s = tokens.shape
+    # the rows of the cast table, gathered before the cast: its gradient sums in float32
+    x = model.embed[tokens.long()].to(cfg.dtype)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in model.layers:
+        if cfg.remat:
+            x, a = checkpoint(_block, cfg, layer, x, positions, attention, use_reentrant=False)
+        else:
+            x, a = _block(cfg, layer, x, positions, attention)
+        aux = aux + a
+    x = rmsnorm(model.final_norm, x, eps=cfg.norm_eps)
+    return x @ model.lm_head.to(cfg.dtype), aux
+
+
+def loss_fn(cfg: LMConfig, model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor, *, attention=None):
+    """Next-token CE (labels = tokens shifted by caller; < 0 = masked), in
+    float32 over a log-sum-exp, plus ``aux_loss_weight`` times the aux loss."""
+    logits, aux = forward(cfg, model, tokens, attention=attention)
+    logits = logits.float()
+    labels = labels.long()
+    mask = labels >= 0
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    ce = (logz - gold) * mask
+    loss = ce.sum() / mask.sum().clamp_min(1)
+    return loss + cfg.aux_loss_weight * aux
 
 
 # ---------------------------------------------------------------------------

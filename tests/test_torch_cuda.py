@@ -597,6 +597,72 @@ def test_flash_attention_wrapper_raises_instead_of_falling_back(cuda):
         flash_attention_cuda(flat[1:].view(q.shape), kv.bfloat16(), kv.bfloat16())
 
 
+@pytest.mark.parametrize("b,s,h,kh,dh", [(2, 200, 8, 2, 64), (1, 129, 6, 1, 128), (2, 77, 4, 4, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_gradient_on_card_matches_plain_autograd(cuda, b, s, h, kh, dh, dtype):
+    """``FlashAttention`` (the kernel's forward, the plain blocked backward)
+    against autograd through the kernel's plain version, on the card, with a
+    ragged last block. float32: the same float32 math in another order, so
+    within 1e-4 of each gradient's largest entry; bf16: both cast float32
+    gradients to bf16, and D = rowsum(dO * O) reads the kernel's bf16 output,
+    which may sit a bf16 step from the plain one: within two bf16 steps
+    (2**-6) relative, 1e-2 of the largest entry absolute."""
+    from repro_torch.kernels.attention import FlashAttention
+
+    g = torch.Generator(device=cuda).manual_seed(s + dh)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, s, h, dh, device=cuda, generator=g).to(dt)
+    k, v = (torch.randn(b, s, kh, dh, device=cuda, generator=g).to(dt) for _ in range(2))
+    dout = torch.randn(b, s, h, dh, device=cuda, generator=g).to(dt)
+    got_in = [x.clone().requires_grad_() for x in (q, k, v)]
+    want_in = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = flash_attention_cuda.launches
+    out = FlashAttention.apply(*got_in, 64)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    flash_attention_plain(*want_in, block_kv=64).backward(dout)
+    for got, want in zip(got_in, want_in):
+        assert got.grad.dtype == dt
+        scale = float(want.grad.float().abs().max())
+        if dtype == "float32":
+            torch.testing.assert_close(got.grad, want.grad, rtol=0, atol=1e-4 * scale)
+        else:
+            torch.testing.assert_close(got.grad.float(), want.grad.float(), rtol=2**-6, atol=1e-2 * scale)
+
+
+def test_lm_train_step_on_card_equals_cpu(cuda):
+    """One AdamW step of a small config (head dim 64, S = 40 > block_kv, two
+    microbatches, remat) on the card against the same step on the CPU:
+    two flash launches a layer and microbatch (the forward and its
+    recomputation), and the same loss, gradient norm and weights. AdamW's
+    eps is 1e-4 (tests/test_torch_train.py: a default-eps step of an element
+    whose gradient is within float32 noise of zero may take either sign)."""
+    from repro_torch.launch.steps import lm_train_step
+    from repro_torch._tree import tree_leaves
+    from repro_torch.optim import OptimizerConfig, adamw_init
+
+    cfg = tf.LMConfig(name="card-train", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=64,
+                      d_ff=256, vocab=300, dtype=torch.float32, block_kv=16, microbatches=2, remat=True)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, decay_steps=10, eps=1e-4)
+    cpu = tf.TransformerLM(cfg, seed=3, device="cpu", masters=True)
+    card = tf.TransformerLM(cfg, seed=4, device=cuda, masters=True)
+    card.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (4, 41)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:].copy())}
+    before = flash_attention_cuda.launches
+    card, card_st, m = lm_train_step(cfg, opt)(card, adamw_init(tf.params_tree(card)),
+                                               {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 2 * cfg.n_layers * cfg.microbatches
+    cpu, cpu_st, want = lm_train_step(cfg, opt)(cpu, adamw_init(tf.params_tree(cpu)), batch)
+    torch.testing.assert_close(m["loss"].cpu(), want["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(m["gnorm"].cpu(), want["gnorm"], rtol=1e-4, atol=0)
+    for a, b in zip(tree_leaves(tf.params_tree(card)), tree_leaves(tf.params_tree(cpu))):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6)
+    assert int(card_st["step"]) == 1
+
+
 def _card_lm():
     cfg = tf.LMConfig(name="card", n_layers=3, d_model=128, n_heads=4, n_kv_heads=2, head_dim=64,
                       d_ff=256, vocab=300, dtype=torch.float32, block_kv=16)
