@@ -9,7 +9,8 @@ own sizes and under live edge ingest at RMAT scale 20, the two-tower
 retrieval server at the full width of ``make_config()`` (18.54 GB of
 tables), TinyLlama-1.1B serving at full width and depth, MoE serving
 (grok-1, arctic) at full width with depth cut, and TinyLlama-1.1B training
-at full width and depth. For a quick check at small
+at full width and depth, then the LM smoke configs (head dim 16) on the
+card. For a quick check at small
 sizes run ``tests/test_torch_cuda.py``. Phases, each raising on failure:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
@@ -111,13 +112,21 @@ sizes run ``tests/test_torch_cuda.py``. Phases, each raising on failure:
     gradient tree on one microbatch through the kernel path and through the
     plain-attention path, each against a float32 step (loss within a bf16
     step; gradients no further from it than the plain path's, by the LM
-    phase's noise ratios); (c) ``train_lm`` for 6 steps with a checkpoint
-    every 3 (the loss falls), and a run stopped after 3 and resumed whose
+    phase's noise ratios); (c) ``train_lm`` for 6 steps (the loss falls),
+    and a run with a checkpoint every 3 stopped after 3 and resumed whose
     losses and weights equal the uninterrupted run's; (d) 352 flash
     launches a step (22 layers × 8 microbatches × 2 under remat), and one
     more step profiled (it must show the tensor-core kernel): step seconds,
     tokens/s, the device's idle share, the largest kernels, the peak memory;
-12. isolation — neither JAX nor the JAX package was imported.
+12. small head dims — the flash kernel at the LM smoke configs' head dim
+    (16; B=8, S=2048, H=4 over K=2) in bf16 and float32 against its plain
+    version, timed beside it and ``scaled_dot_product_attention``, one
+    kernel a call; then each of the five smoke configs (grok-1 and arctic
+    under both dispatches) prefills and takes one AdamW train step on the
+    card (one launch a layer; two a layer and microbatch under remat) equal
+    to the same on the CPU, and ``launch.train.main([])`` runs with its
+    defaults on the card (the loss falls, one launch a layer and step);
+13. isolation — neither JAX nor the JAX package was imported.
 
 The kernels' times go out as one JSON line. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -125,6 +134,7 @@ checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -230,8 +240,8 @@ MOE_FLIP_SHARE, MOE_LOGIT_REL_RMS = 0.05, 0.05
 # LM training at TinyLlama-1.1B's full width and depth: float32 masters,
 # bf16 compute, AdamW (the config's OPTIMIZER), train_4k's sequence and the
 # config's 8 microbatches, the batch cut from 256 to 16 (two sequences a
-# microbatch); train_lm runs 6 steps with a checkpoint every 3, and a second
-# run stops after 3 and resumes
+# microbatch); train_lm runs 6 steps, and a second run with a checkpoint
+# every 3 stops after 3 and resumes
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY = 16, 6, 3
 # (a) the attention's gradient (the kernel's forward, the plain blocked
 # backward) against autograd through the kernel's plain version, at (B, S,
@@ -252,6 +262,19 @@ TRAIN_LOSS_RTOL = 2**-8
 # gradient moves AdamW's step by as much relative, ~1e-10 of a weight, and
 # the losses by less than RESUME_LOSS_RTOL
 RESUME_LOSS_RTOL, RESUME_PARAM_ATOL = 1e-4, 1e-5
+
+# the LM smoke configs' head dim on the card: the kernel at their head
+# grouping (H=4 over K=2, Dh=16) at the served batch and length, and their
+# block_kv for its plain version; each config's prefill (2 x 77 tokens) and
+# one train step (4 x 40 tokens, 2 microbatches, remat, AdamW with eps 1e-4:
+# tests/test_torch_train.py) against the CPU, the MoE ones under both
+# dispatches, at the card tests' tolerances
+SMALL_DH_SHAPE = (8, 2048, 4, 2, 16)
+SMALL_DH_BLOCK_KV = 16
+SMALL_DH_CASES = (("tinyllama-1.1b", None), ("stablelm-1.6b", None), ("granite-34b", None),
+                  ("grok-1-314b", "dense"), ("grok-1-314b", "gather"),
+                  ("arctic-480b", "dense"), ("arctic-480b", "gather"))
+SMALL_DH_PROMPT, SMALL_DH_TRAIN_SEQ = 77, 40
 
 TIMED_BATCHES, TIMED_PER_BATCH = 5, 20
 # published H100 peaks (NVIDIA data sheets): HBM bytes/s by part, the
@@ -341,24 +364,28 @@ def device_time_by_kernel(run, tries: int = 1) -> tuple[dict[str, float], float]
     return by_name, wall
 
 
-def device_time_from_trace(run) -> tuple[dict[str, float], float]:
+def device_time_from_trace(run, tries: int = 1) -> tuple[dict[str, float], float]:
     """``device_time_by_kernel`` for runs of up to ~10^6 launches (the road
-    graph's BFS): the device activity alone is traced, and each device
-    event's duration summed straight from the profiler's raw trace, without
-    building its tree of events, which takes minutes at that size."""
+    graph's BFS, a train step): the device activity alone is traced, and
+    each device event's duration summed straight from the profiler's raw
+    trace, without building its tree of events, which takes minutes at that
+    size. ``tries`` as ``device_time_by_kernel``'s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name: dict[str, float] = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
-            continue
-        by_name[e.name()] = by_name.get(e.name(), 0.0) + (e.end_ns() - e.start_ns()) / 1e6
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name: dict[str, float] = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+                continue
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + (e.end_ns() - e.start_ns()) / 1e6
+        if by_name:
+            break
     return by_name, wall
 
 
@@ -1443,26 +1470,32 @@ def sdpa_library(q, k, v):
 
 def hold_flash(q, k, v, what: str, bw: float, block_kv: int, reps: dict) -> dict:
     """The flash kernel against its plain version on bf16 q/k/v at
-    torch.testing's bf16 tolerances, then timed beside the plain version
-    and ``scaled_dot_product_attention``, with its bound at the bf16
-    tensor-core rate. ``reps`` overrides ``time_ms``'s counts."""
+    torch.testing's bf16 tolerances (float32 q/k/v: at the JAX package's),
+    then timed beside the plain version and ``scaled_dot_product_attention``,
+    with its bound at the bf16 tensor-core rate (float32: the CUDA cores').
+    ``reps`` overrides ``time_ms``'s counts."""
     from repro_torch.kernels.attention import flash_attention_cuda, flash_attention_plain
 
     def plain(q, k, v):
         return flash_attention_plain(q, k, v, block_kv=block_kv)
 
     b, s, h, dh = q.shape
+    f32 = q.dtype == torch.float32
+    name = "float32" if f32 else "bf16"
     got, want = flash_attention_cuda(q, k, v), plain(q, k, v)
-    torch.testing.assert_close(got, want, rtol=FLASH_BF16_RTOL, atol=FLASH_BF16_ATOL)
-    checks = {"bf16": float((got.float() - want.float()).abs().max()),
-              "library_vs_plain_bf16": float((sdpa_library(q, k, v).float() - want.float()).abs().max())}
+    if f32:
+        torch.testing.assert_close(got, want, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)
+    else:
+        torch.testing.assert_close(got, want, rtol=FLASH_BF16_RTOL, atol=FLASH_BF16_ATOL)
+    checks = {name: float((got.float() - want.float()).abs().max()),
+              f"library_vs_plain_{name}": float((sdpa_library(q, k, v).float() - want.float()).abs().max())}
     del got, want
     log(f"flash {what} B={b} S={s} H={h} K={k.shape[2]} Dh={dh}: kernel vs plain max |diff| {checks}")
     n_ops = 2 * dh * s * (s + 1) * b * h
-    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    b_ms, b_by = bound_ms(n_bytes, n_ops, bw, BF16_TENSOR_OPS_PER_S)
+    n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound_ms(n_bytes, n_ops, bw, CUDA_CORE_OPS_PER_S if f32 else BF16_TENSOR_OPS_PER_S)
     row = {
-        "shape": f"{what}: B={b} S={s} H={h} K={k.shape[2]} Dh={dh} bf16",
+        "shape": f"{what}: B={b} S={s} H={h} K={k.shape[2]} Dh={dh} {name}",
         "ms": time_ms(lambda: flash_attention_cuda(q, k, v), **reps),
         "plain_ms": time_ms(lambda: plain(q, k, v), **(reps or dict(batches=5, per_batch=4))),
         "library_ms": time_ms(lambda: sdpa_library(q, k, v), **reps),
@@ -1595,30 +1628,12 @@ def lm_path(dev: torch.device, bw: float) -> list[dict]:
                                                         dict(warmup=1, batches=3, per_batch=1))):
         q, k, v = layer0_qkv(model, cfg, tokens)
         shapes.append(hold_flash(q, k, v, what, bw, cfg.block_kv, reps))
-        if what == "served":  # float32 inputs (the CUDA-core kernel) at the JAX package's tolerance
-            b, s, h, dh = q.shape
-            f32 = q[:2].float(), k[:2].float(), v[:2].float()
-            got32, want32 = flash_attention_cuda(*f32), plain_attention(*f32)
-            torch.testing.assert_close(got32, want32, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)
-            err32 = float((got32 - want32).abs().max())
-            del got32, want32
-            log(f"flash served float32 B=2: kernel vs plain max |diff| {err32}")
-            # the float32 path, bound at the CUDA cores' float32 rate
-            n_ops32 = 2 * dh * s * (s + 1) * 2 * h
-            n_bytes32 = 4 * (2 * f32[0].numel() + f32[1].numel() + f32[2].numel())
-            b32_ms, b32_by = bound_ms(n_bytes32, n_ops32, bw)
-            shapes.append({
-                "shape": f"{what} float32: B=2 S={s} H={h} K={k.shape[2]} Dh={dh} float32",
-                "ms": time_ms(lambda: flash_attention_cuda(*f32)),
-                "plain_ms": time_ms(lambda: plain_attention(*f32), batches=5, per_batch=4),
-                "library_ms": time_ms(lambda: sdpa_library(*f32)),
-                "bound_ms": b32_ms, "bound_by": b32_by,
-                "flop": n_ops32, "bytes": n_bytes32, "max_abs_err": err32,
-            })
-            log(json.dumps({"flash_attention_times": shapes[-1]}))
-            del f32
+        if what == "served":  # float32 inputs: the CUDA-core kernel, at B=2
+            shapes.append(hold_flash(q[:2].float(), k[:2].float(), v[:2].float(), "served float32", bw,
+                                     cfg.block_kv, {}))
         del q, k, v
-    flash_err = max(shapes[0]["max_abs_err"]["bf16"], shapes[1]["max_abs_err"], shapes[2]["max_abs_err"]["bf16"])
+    flash_err = max(shapes[0]["max_abs_err"]["bf16"], shapes[1]["max_abs_err"]["float32"],
+                    shapes[2]["max_abs_err"]["bf16"])
     torch.cuda.empty_cache()
 
     # end-to-end times: a warm prefill, the decode steps, and a profiled prefill
@@ -2089,9 +2104,9 @@ def lm_train_path(dev: torch.device, bw: float) -> dict:
     """Phase 11: TinyLlama-1.1B training at full width and depth. Checks
     (a) the attention's gradient, (b) step 0's loss and gradients through
     the kernel path and the plain-attention path against a float32 step,
-    (c) ``train_lm`` for 6 steps and a run stopped after 3 and resumed, the
-    loss falling, (d) the flash launches a step and a profiled step."""
-    import shutil
+    (c) ``train_lm`` for 6 steps and a run with checkpoints stopped after 3
+    and resumed, the loss falling, (d) the flash launches a step and a
+    profiled step."""
     import tempfile
 
     from repro_torch.configs import get_arch
@@ -2158,12 +2173,14 @@ def lm_train_path(dev: torch.device, bw: float) -> dict:
                                  "than the plain path")
     torch.cuda.empty_cache()
 
-    # (c) + (d) the main path: train_lm, 6 steps with checkpoints every 3 -------
+    # (c) + (d) the main path: train_lm for 6 steps, then a run with a
+    # checkpoint every 3 that stops after 3 and resumes (the uninterrupted
+    # run writes no checkpoint: nothing reads one) -----------------------------
     kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=seq, ckpt_every=TRAIN_CKPT_EVERY, log_every=1, device=dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         flash_attention_cuda.launches = 0
         t0 = time.perf_counter()
-        full = train_lm(cfg, ckpt_dir=f"{tmp}/full", **kw)
+        full = train_lm(cfg, **kw)
         full_s = time.perf_counter() - t0
         launches = flash_attention_cuda.launches
         per_step = launches / TRAIN_STEPS
@@ -2176,7 +2193,6 @@ def lm_train_path(dev: torch.device, bw: float) -> dict:
         want, step_s, tokens_per_s = full["params"], full["step_s"], full["tokens_per_s"]
         del full
         gc.collect()
-        shutil.rmtree(f"{tmp}/full")  # 13.2 GB a checkpoint: make room for the second run's
         t0 = time.perf_counter()
         train_lm(cfg, ckpt_dir=f"{tmp}/cut", stop_after=TRAIN_CKPT_EVERY, **kw)
         gc.collect()
@@ -2199,8 +2215,11 @@ def lm_train_path(dev: torch.device, bw: float) -> dict:
         step = lm_train_step(cfg, opt_cfg)
         nxt = next(TokenStream(cfg.vocab, TRAIN_BATCH, seq, seed=0, step=TRAIN_STEPS))
         nxt = {k_: torch.from_numpy(v_).to(dev) for k_, v_ in nxt.items()}
-        # the profiler loses a whole window now and then: a lost one is a step again
-        by_name, pwall = device_time_by_kernel(lambda: step(model, opt_state, nxt), tries=3)
+        # the profiler loses a whole window now and then: a lost one is a step
+        # again; a step's ~10^5 launches are summed from the raw trace
+        t0 = time.perf_counter()
+        by_name, pwall = device_time_from_trace(lambda: step(model, opt_state, nxt), tries=3)
+        profile_s = time.perf_counter() - t0
     busy = sum(by_name.values())
     flash_busy = sum(v_ for k_, v_ in by_name.items() if "flash_attention" in k_)
     if not any("flash_attention_wgmma_kernel" in k_ for k_ in by_name):
@@ -2220,13 +2239,125 @@ def lm_train_path(dev: torch.device, bw: float) -> dict:
         "step_s_all": step_s, "step_s_median": float(np.median(step_s)),
         "tokens_per_s_median_step": TRAIN_BATCH * seq / float(np.median(step_s)),
         "train_lm_tokens_per_s": tokens_per_s,
-        "profiled_step": {"wall_s": pwall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / (pwall * 1e3),
+        "profiled_step": {"wall_s": pwall, "with_processing_s": profile_s,
+                          "device_busy_ms": busy, "device_idle_share": 1.0 - busy / (pwall * 1e3),
                           "flash_attention_ms": flash_busy,
                           "top_kernels_ms": {short_kernel_name(k_, 70): v_ for k_, v_ in top}},
         "peak_bytes": torch.cuda.max_memory_allocated(), "phase_s": time.perf_counter() - t_phase,
     }
     log(json.dumps({"lm_train_path": record}))
     return {"record": record, "times": times, "launches_per_step": per_step}
+
+
+def hold_flash_small(dev: torch.device, bw: float, dtype: torch.dtype) -> dict:
+    """``hold_flash`` at the smoke configs' head dim (``SMALL_DH_SHAPE``,
+    their ``block_kv`` for the plain version) in ``dtype``, and the device
+    work one call issues, which must be one kernel."""
+    from repro_torch.kernels.attention import flash_attention_cuda
+
+    b, s, h, kh, dh = SMALL_DH_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + dh)
+    q = torch.randn(b, s, h, dh, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(b, s, kh, dh, device=dev, generator=g).to(dtype) for _ in range(2))
+    row = hold_flash(q, k, v, "smoke head dim", bw, SMALL_DH_BLOCK_KV, {})
+    row["launches_per_call"] = launches_per_call(lambda: flash_attention_cuda(q, k, v))
+    if row["launches_per_call"] != {"kernel": 1}:
+        raise AssertionError(f"flash at Dh={dh} {dtype}: one call issued {row['launches_per_call']}, not one kernel")
+    return row
+
+
+def small_head_dims_path(dev: torch.device, bw: float) -> dict:
+    """Phase 12: the flash kernel at the LM smoke configs' head dim (16) on
+    both of its paths, then each smoke config's prefill and one train step
+    on the card against the CPU, then the trainer with its defaults."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import flash_attention_cuda
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import lm_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import OptimizerConfig, adamw_init
+
+    shapes = [hold_flash_small(dev, bw, torch.bfloat16), hold_flash_small(dev, bw, torch.float32)]
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, decay_steps=10, eps=1e-4)
+    cases, t0 = [], time.perf_counter()
+    # the main path: each smoke config's prefill and train step, then the trainer
+    flash_attention_cuda.launches = 0
+    for arch, dispatch in SMALL_DH_CASES:
+        cfg = get_arch(arch).make_smoke_config()
+        over = {"microbatches": 2, "remat": True}
+        if dispatch is not None:
+            over["moe"] = dataclasses.replace(cfg.moe, dispatch=dispatch)
+        cfg = dataclasses.replace(cfg, **over)
+        if cfg.dh != 16:
+            raise AssertionError(f"{arch}: smoke head dim {cfg.dh}, not 16")
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, SMALL_DH_PROMPT)).astype(np.int32))
+        cpu = tf.TransformerLM(cfg, seed=SEED, device="cpu")
+        card = tf.TransformerLM(cfg, seed=SEED + 1, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        before = flash_attention_cuda.launches
+        logits, cache = tf.prefill(cfg, card, toks.to(dev), SMALL_DH_PROMPT + 1)
+        torch.cuda.synchronize()
+        prefill_launches = flash_attention_cuda.launches - before
+        want, want_cache = tf.prefill(cfg, cpu, toks, SMALL_DH_PROMPT + 1)
+        torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(cache["k"].cpu(), want_cache["k"], rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(cache["v"].cpu(), want_cache["v"], rtol=1e-4, atol=1e-5)
+        prefill_err = float((logits.cpu() - want).abs().max())
+        del card, cpu, logits, cache
+
+        seq = rng.integers(0, cfg.vocab, (4, SMALL_DH_TRAIN_SEQ + 1)).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(seq[:, :-1]), "labels": torch.from_numpy(seq[:, 1:].copy())}
+        cpu = tf.TransformerLM(cfg, seed=SEED, device="cpu", masters=True)
+        card = tf.TransformerLM(cfg, seed=SEED + 1, device=dev, masters=True)
+        card.load_state_dict(cpu.state_dict())
+        before = flash_attention_cuda.launches
+        card, _, m = lm_train_step(cfg, opt)(card, adamw_init(tf.params_tree(card)),
+                                             {k_: v_.to(dev) for k_, v_ in batch.items()})
+        torch.cuda.synchronize()
+        step_launches = flash_attention_cuda.launches - before
+        cpu, _, want_m = lm_train_step(cfg, opt)(cpu, adamw_init(tf.params_tree(cpu)), batch)
+        torch.testing.assert_close(m["loss"].cpu(), want_m["loss"], rtol=1e-5, atol=0)
+        torch.testing.assert_close(m["gnorm"].cpu(), want_m["gnorm"], rtol=1e-4, atol=0)
+        weight_err = 0.0
+        for a, b in zip(tree_leaves(tf.params_tree(card)), tree_leaves(tf.params_tree(cpu))):
+            torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-6)
+            weight_err = max(weight_err, float((a.detach().cpu() - b.detach()).abs().max()))
+        if prefill_launches != cfg.n_layers or step_launches != 2 * cfg.n_layers * cfg.microbatches:
+            raise AssertionError(f"{arch} {dispatch}: {prefill_launches} prefill and {step_launches} train-step "
+                                 "flash launches")
+        cases.append({"arch": arch, "dispatch": dispatch, "prefill_launches": prefill_launches,
+                      "train_step_launches": step_launches, "prefill_logit_max_abs_diff": prefill_err,
+                      "loss": float(m["loss"]), "loss_cpu": float(want_m["loss"]),
+                      "gnorm": float(m["gnorm"]), "gnorm_cpu": float(want_m["gnorm"]),
+                      "weight_max_abs_diff": weight_err})
+        log(json.dumps({"smoke_config_on_card": cases[-1]}))
+        del card, cpu
+    cases_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    before = flash_attention_cuda.launches
+    with contextlib.redirect_stdout(sys.stderr):  # the trainer's step lines
+        out = train.main([])
+    torch.cuda.synchronize()
+    trainer_launches = flash_attention_cuda.launches - before
+    launches = flash_attention_cuda.launches
+    cfg = train.build_small_lm("tinyllama-1.1b")
+    first, last = out["losses"][0][1], out["losses"][-1][1]
+    steps = len(out["step_s"])
+    if not last < first:
+        raise AssertionError(f"trainer defaults: loss {first} -> {last} did not fall")
+    if trainer_launches != steps * cfg.n_layers or next(out["model"].parameters()).device.type != "cuda":
+        raise AssertionError(f"trainer defaults: {trainer_launches} flash launches over {steps} steps on "
+                             f"{next(out['model'].parameters()).device}")
+    trainer = {"steps": steps, "loss_first": first, "loss_last": last, "losses": out["losses"],
+               "flash_launches": trainer_launches, "wall_s": time.perf_counter() - t0,
+               "step_ms_median": float(np.median(out["step_s"])) * 1e3, "tokens_per_s": out["tokens_per_s"]}
+    log(json.dumps({"trainer_defaults_on_card": trainer, "smoke_cases_s": cases_s}))
+    return {"shapes": shapes, "launches": launches, "cases": cases, "trainer": trainer}
 
 
 def main() -> int:
@@ -2321,7 +2452,18 @@ def main() -> int:
     flash["launches_by_phase"]["lm_train_tinyllama_per_step"] = train["launches_per_step"]
     flash["shapes"].append(train["times"])
 
-    # 12. isolation -------------------------------------------------------------
+    # 12. the smoke configs' head dim (16) ----------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    small = small_head_dims_path(dev, bw)
+    log(f"small head dims phase: {time.perf_counter() - t0:.1f} s")
+    flash["launches_by_phase"]["smoke_dh16"] = small["launches"]
+    flash["shapes"] += small["shapes"]
+    flash["max_abs_err"] = max(flash["max_abs_err"], small["shapes"][0]["max_abs_err"]["bf16"],
+                               small["shapes"][1]["max_abs_err"]["float32"])
+
+    # 13. isolation -------------------------------------------------------------
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     if leaked:
         raise AssertionError(f"imported the JAX side: {leaked}")

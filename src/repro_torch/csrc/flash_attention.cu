@@ -40,10 +40,12 @@
 //     through a ring of kStages slots, with full and empty mbarriers. The
 //     tensor maps are 4-D over (Dh, heads, S, B): a ragged S tile is
 //     zero-filled per batch by the hardware, and GQA is the head coordinate.
-//     Each tile lands in 64 B (Dh 32) or 128 B (Dh 64, 128) swizzle atoms,
-//     which the wgmma descriptors name. Within a warpgroup the products and
-//     the softmax alternate (wait for K, S, softmax, wait for V, P·V); the two
-//     warpgroups overlap where the warp schedulers interleave them.
+//     Each tile lands in 32 B (Dh 16), 64 B (Dh 32) or 128 B (Dh 64, 128)
+//     swizzle atoms, which the wgmma descriptors name. At Dh 16 Q·Kᵀ is one
+//     k16 step and P·V an m64n16k16 product (8 accumulators a thread).
+//     Within a warpgroup the products and the softmax alternate (wait for K,
+//     S, softmax, wait for V, P·V); the two warpgroups overlap where the warp
+//     schedulers interleave them.
 //   - The loop over KV tiles stops at the diagonal: a tile wholly above it
 //     adds exp(-1e30 - m) = 0 to every sum and leaves m as it is, so skipping
 //     it is exact. Only a tile that crosses a warpgroup's diagonal is masked
@@ -86,23 +88,33 @@ constexpr int kTcThreads = 384;  // warpgroups 0, 1 consume; warpgroup 2 produce
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
-// Shared memory of one block. Every buffer starts on a 1024 B boundary, where
-// the swizzle pattern starts, so TMA's writes and wgmma's reads agree.
+// Shared memory of one block. The block's base sits on a 1024 B boundary.
+// An N-byte swizzle (N = 32, 64, 128: the atom row) XORs a row's 16 B chunks
+// with the row's index among 8, so its pattern repeats every 8 rows, 8·N
+// bytes: every buffer, and every 16-row K step of V that a P·V descriptor
+// starts at, must begin on such a repeat for TMA's writes and wgmma's reads
+// to agree (the descriptors' base-offset field stays 0).
 template <int D, int BK>
 struct TcLayout {
   static constexpr int kAtom = D < 64 ? D : 64;  // columns per swizzle atom row
   static constexpr int kAtoms = D / kAtom;
-  static constexpr uint32_t kRowBytes = kAtom * 2;  // 64 or 128
+  static constexpr uint32_t kRowBytes = kAtom * 2;  // 32, 64 or 128
+  static constexpr uint32_t kRepeat = 8 * kRowBytes;  // the swizzle pattern's period
   static constexpr CUtensorMapSwizzle kSwizzle =
-      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  static constexpr uint64_t kDescLayout = kRowBytes == 128 ? 1 : 2;  // wgmma: 1 = 128 B, 2 = 64 B
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  // wgmma descriptor bits 62-63: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
+  static constexpr uint64_t kDescLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
   static constexpr uint32_t kQBytes = kBQ * D * 2;  // atoms of [kBQ][kAtom]
   static constexpr uint32_t kTileBytes = BK * D * 2;  // one K or V tile: atoms of [BK][kAtom]
   static constexpr uint32_t kK = kQBytes;
   static constexpr uint32_t kV = kK + kStages * kTileBytes;
   static constexpr uint32_t kSmem = kV + kStages * kTileBytes + 1024;  // + alignment slack
-  static_assert(kQBytes % 1024 == 0 && kTileBytes % 1024 == 0 && 8 * kRowBytes * 2 % 1024 == 0,
-                "buffers must stay on swizzle boundaries");
+  static_assert(D % 16 == 0 && kRowBytes % 32 == 0, "atoms of 16-column K slices");
+  static_assert(1024 % kRepeat == 0 && kQBytes % kRepeat == 0 && kTileBytes % kRepeat == 0 &&
+                    64 * kRowBytes % kRepeat == 0 && BK * kRowBytes % kRepeat == 0 &&
+                    16 * kRowBytes % kRepeat == 0,
+                "buffers, a warpgroup's Q rows, atoms and V's K steps must start on swizzle repeats");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -185,6 +197,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+#define WG_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define WG_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define WG_D32                                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
@@ -196,6 +209,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 #define F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define F16(d, i) F4(d, i), F4(d, i + 4), F4(d, i + 8), F4(d, i + 12)
+#define ACC8(d) F4(d, 0), F4(d, 4)
 #define ACC16(d) F16(d, 0)
 #define ACC32(d) F16(d, 0), F16(d, 16)
 #define ACC64(d) F16(d, 0), F16(d, 16), F16(d, 32), F16(d, 48)
@@ -241,6 +255,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 
 WGMMA_SS(wgmma_ss_n64, "m64n64k16", WG_D32, ACC32, 32, 33, 34)
 WGMMA_SS(wgmma_ss_n128, "m64n128k16", WG_D64, ACC64, 64, 65, 66)
+WGMMA_RS(wgmma_rs_n16, "m64n16k16", WG_D8, ACC8, 8, 9, 10, 11, 12, 13)
 WGMMA_RS(wgmma_rs_n32, "m64n32k16", WG_D16, ACC16, 16, 17, 18, 19, 20, 21)
 WGMMA_RS(wgmma_rs_n64, "m64n64k16", WG_D32, ACC32, 32, 33, 34, 35, 36, 37)
 WGMMA_RS(wgmma_rs_n128, "m64n128k16", WG_D64, ACC64, 64, 65, 66, 67, 68, 69)
@@ -254,8 +269,9 @@ __device__ __forceinline__ void mma_ss(float* d, uint64_t a, uint64_t b, int acc
 
 template <int N, bool kHalf>
 __device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint64_t b) {
-  static_assert(N == 32 || N == 64 || N == 128, "PV takes Dh 32, 64 or 128");
-  if constexpr (N == 32) wgmma_rs_n32<kHalf>(d, a, b);
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "PV takes Dh 16, 32, 64 or 128");
+  if constexpr (N == 16) wgmma_rs_n16<kHalf>(d, a, b);
+  else if constexpr (N == 32) wgmma_rs_n32<kHalf>(d, a, b);
   else if constexpr (N == 64) wgmma_rs_n64<kHalf>(d, a, b);
   else wgmma_rs_n128<kHalf>(d, a, b);
 }
@@ -530,8 +546,11 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int64_t B
 template <typename T>
 int launch_wgmma_dh(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t S,
                     int64_t H, int64_t KH, int64_t D, cudaStream_t stream) {
-  // 128-key tiles, 64 at Dh 128 where S's and O's accumulators share 240 registers
+  // 128-key tiles, the widest Q·Kᵀ product instantiated (shared memory holds
+  // Q and two K/V slots in 20 KB at Dh 16, 36 KB at 32, 68 KB at 64); 64 at
+  // Dh 128, where S's and O's accumulators share 240 registers
   switch (D) {
+    case 16: return launch_wgmma<T, 16, 128>(q, k, v, o, B, S, H, KH, stream);
     case 32: return launch_wgmma<T, 32, 128>(q, k, v, o, B, S, H, KH, stream);
     case 64: return launch_wgmma<T, 64, 128>(q, k, v, o, B, S, H, KH, stream);
     case 128: return launch_wgmma<T, 128, 64>(q, k, v, o, B, S, H, KH, stream);
@@ -543,9 +562,11 @@ int launch_wgmma_dh(const void* q, const void* k, const void* v, void* o, int64_
 //
 // One block owns 64 query rows of one (batch, head) and loops over 64-key
 // tiles. 128 threads as 16 x 8: thread (ty, tx) owns query rows 4ty..4ty+3
-// and, of each tile, keys 4tx + {0..3} and 32 + 4tx + {0..3} (of the output,
-// columns 4tx + 32g + {0..3}), so every shared-memory operand read is one
-// 16-byte load, either a broadcast or a conflict-free run. q (scaled) and k
+// and, of each tile, keys 4tx + {0..3} and 32 + 4tx + {0..3}; of the output,
+// columns 4tx + 32g + {0..3} (Dh a multiple of 32), or 2tx + {0, 1} at Dh
+// 16, where the 8 threads of a row split its 16 columns in float2 pairs. So
+// every shared-memory operand read is one 16-byte (8-byte) load, either a
+// broadcast or a conflict-free run. q (scaled) and k
 // sit in shared memory transposed, [Dh][68]; v reuses k's space as [64][Dh]
 // once the scores are taken; the probabilities go through a [64][68] tile.
 // Row maxima and sums are reduced over the 8 threads of a row.
@@ -576,8 +597,10 @@ template <int D>
 __global__ void __launch_bounds__(kF32Threads) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ o, int64_t S, int64_t H, int64_t KH, float scale) {
-  static_assert(D % 32 == 0, "head dim must be a multiple of 32");
-  constexpr int G4 = D / 32;  // float4 groups of output columns per thread
+  static_assert(D == 16 || D % 32 == 0, "head dim 16 or a multiple of 32");
+  constexpr int kVec = D == 16 ? 2 : 4;  // output columns per group: a float2 or a float4
+  constexpr int kGroups = D / (8 * kVec);  // groups of output columns per thread
+  constexpr int kCols = kVec * kGroups;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;            // [D][kLd]: qs[d * kLd + row] = q[row, d] * scale
   float* kv = qs + D * kLd;    // [D][kLd] k^T, then [kF32BK][D] v
@@ -604,13 +627,13 @@ __global__ void __launch_bounds__(kF32Threads) flash_attention_f32_kernel(
     qs[d * kLd + r] = s < S ? qb[s * q_stride + d] * scale : 0.f;
   }
 
-  float m[4], l[4], acc[4][4 * G4];
+  float m[4], l[4], acc[4][kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4 * G4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
   }
 
   const int64_t last_row = (q0 + kF32BQ < S ? q0 + kF32BQ : S) - 1;
@@ -665,7 +688,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_attention_f32_kernel(
       l[i] = l[i] * alpha + row_sum(sum);
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 4 * G4; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha;
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -687,15 +710,20 @@ __global__ void __launch_bounds__(kF32Threads) flash_attention_f32_kernel(
       const float4 p = *reinterpret_cast<const float4*>(&ps[key * kLd + 4 * ty]);
       const float pv[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
-      for (int g = 0; g < G4; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(&kv[key * D + 32 * g + 4 * tx]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4 * g + 0] = fmaf(pv[i], vv.x, acc[i][4 * g + 0]);
-          acc[i][4 * g + 1] = fmaf(pv[i], vv.y, acc[i][4 * g + 1]);
-          acc[i][4 * g + 2] = fmaf(pv[i], vv.z, acc[i][4 * g + 2]);
-          acc[i][4 * g + 3] = fmaf(pv[i], vv.w, acc[i][4 * g + 3]);
+      for (int g = 0; g < kGroups; ++g) {
+        const float* vrow = &kv[key * D + 8 * kVec * g + kVec * tx];
+        float vv[kVec];
+        if constexpr (kVec == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(vrow);
+          vv[0] = x.x, vv[1] = x.y, vv[2] = x.z, vv[3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(vrow);
+          vv[0] = x.x, vv[1] = x.y;
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) acc[i][kVec * g + e] = fmaf(pv[i], vv[e], acc[i][kVec * g + e]);
       }
     }
     __syncthreads();  // v and p are read before the next tile overwrites them
@@ -707,10 +735,10 @@ __global__ void __launch_bounds__(kF32Threads) flash_attention_f32_kernel(
     if (s >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int g = 0; g < G4; ++g)
+    for (int g = 0; g < kGroups; ++g)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ob[s * q_stride + 32 * g + 4 * tx + e] = acc[i][4 * g + e] / den;
+      for (int e = 0; e < kVec; ++e)
+        ob[s * q_stride + 8 * kVec * g + kVec * tx + e] = acc[i][kVec * g + e] / den;
   }
 }
 
@@ -735,6 +763,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int64_t B, 
 int launch_f32_dh(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t S,
                   int64_t H, int64_t KH, int64_t D, cudaStream_t stream) {
   switch (D) {
+    case 16: return launch_f32<16>(q, k, v, o, B, S, H, KH, stream);
     case 32: return launch_f32<32>(q, k, v, o, B, S, H, KH, stream);
     case 64: return launch_f32<64>(q, k, v, o, B, S, H, KH, stream);
     case 128: return launch_f32<128>(q, k, v, o, B, S, H, KH, stream);
@@ -746,7 +775,7 @@ int launch_f32_dh(const void* q, const void* k, const void* v, void* o, int64_t 
 
 // o[B, S, H, D] = causal attention of q[B, S, H, D] over k, v[B, S, KH, D],
 // query head h reading KV head h / (H / KH); all row-major and contiguous,
-// of one type: dtype 0 float32, 1 bfloat16, 2 float16. D is 32, 64 or 128;
+// of one type: dtype 0 float32, 1 bfloat16, 2 float16. D is 16, 32, 64 or 128;
 // 16-bit inputs start on 16-byte boundaries (TMA). Launches on `stream`;
 // returns cudaGetLastError(), or an error code for a shape, type or address
 // the kernels do not take.

@@ -31,11 +31,11 @@ import torch
 from .._build import check, load
 
 BLOCK_Q = 128                          # bf16/fp16 kernel: query rows per CUDA block
-BLOCK_K = {32: 128, 64: 128, 128: 64}  # its keys per tile, by head dim
+BLOCK_K = {16: 128, 32: 128, 64: 128, 128: 64}  # its keys per tile, by head dim
 F32_BLOCK_Q = 64                       # float32 kernel: query rows per block
 F32_BLOCK_K = 64                       # its keys per tile
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)   # the head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_Q_TILES = 65535        # the grid's second axis
 

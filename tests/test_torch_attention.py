@@ -204,7 +204,7 @@ def _card_close(got, want):
         torch.testing.assert_close(got, want, rtol=CARD_F16_TOL, atol=CARD_F16_TOL)
 
 
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("g", [1, 8])
 @pytest.mark.parametrize("s", [129, 600])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])

@@ -1,0 +1,293 @@
+"""The port's execution-backend seam (``repro_torch.core.backends``)
+against the JAX package's, test for test with ``tests/test_backends.py``.
+Where a run is deterministic (the modeled echo, a stub backend that reports
+a fixed time) both engines run the same scenario and their reports must be
+equal; where a run measures the host's clock (the inline and ``cuda``
+backends), the reference's assertions are held on the port.
+
+The reference's ``PallasBackend`` tests map to ``CudaBackend``. Here, on
+the CPU, it runs the kernels' plain versions on a graph built on the CPU;
+on the card the same tests run under the ``cuda`` marker in
+``tests/test_torch_cuda.py`` (``test_cuda_backend_*_on_card``), with no
+JAX. Already covered elsewhere, so not repeated here:
+
+- ``test_resolve_backend_specs`` and ``test_backends_satisfy_protocol``:
+  ``tests/test_torch_engine.py::test_resolve_backend_specs`` (names,
+  the ``cuda`` backend, the protocol; the instance pass-through and the
+  refusals are below);
+- ``test_pallas_falls_back_inline_without_lowering``:
+  ``tests/test_torch_engine.py::test_cuda_backend_inline_fallback_without_lowering``;
+- ``test_pallas_results_stable_across_gang_widths``:
+  ``tests/test_torch_engine.py::test_cuda_backend_pr_stable_across_gang_widths``.
+"""
+import time
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+import repro.core as jcore  # noqa: E402
+import repro_torch.algorithms as talg  # noqa: E402
+import repro_torch.core as tcore  # noqa: E402
+from _torch_parity import both, packages, plain, port_graph, report_view  # noqa: E402
+from _torch_bench_rows import one_torch_thread  # noqa: E402,F401  (autouse: one torch thread a test)
+
+
+@pytest.fixture(scope="module")
+def graphs(small_rmat):
+    return {"jax": small_rmat, "torch": port_graph(small_rmat)}
+
+
+@pytest.fixture(scope="module")
+def graphs12(medium_rmat):
+    return {"jax": medium_rmat, "torch": port_graph(medium_rmat)}
+
+
+def _engine(core, backend=None, **kw):
+    return core.MultiQueryEngine(core.XEON_E5_2660V4, policy="scheduler", backend=backend, **kw)
+
+
+def _run_one(core, eng, ex):
+    rec = core.QueryRecord(0, 0, ex.desc.name)
+    eng.run_query(ex, rec)
+    return rec
+
+
+def _mixed_mk(alg, graph):
+    hubs = np.argsort(-np.asarray(graph.out_degrees()))
+    return lambda s, q: (alg.PageRankExecutor(graph, mode="pull", max_iters=3, tol=0) if s == 0
+                         else alg.BFSExecutor(graph, int(hubs[s % 4])))
+
+
+def _fused_cfg(core, **kw):
+    return core.EngineConfig(steal=True, fuse=True, fusion=core.FusionConfig(hold_ns=2e4), **kw)
+
+
+# ---------------- resolve + memoization ----------------
+
+def test_resolve_backend_passes_instances_and_refuses_bad_specs():
+    for name, (_, core) in packages().items():
+        inst = core.InlineBackend()
+        assert core.resolve_backend(inst) is inst
+        assert isinstance(core.resolve_backend("modeled"), core.ModeledBackend)
+        with pytest.raises(TypeError):
+            core.resolve_backend(42)
+    msgs = []
+    for _, core in packages().values():
+        with pytest.raises(ValueError, match="unknown execution backend") as err:
+            core.resolve_backend("gpu")
+        msgs.append(str(err.value).split(";")[0].split("(")[0])
+    assert msgs[0] == msgs[1]
+
+
+def test_prepare_is_memoized_per_executor_prep_pair(graphs):
+    for name, (alg, core) in packages().items():
+        backend = core.ModeledBackend()
+        ex = alg.PageRankExecutor(graphs[name], mode="pull", max_iters=2, tol=0)
+        ex.start()
+        prep = object()
+        plan = backend.prepare(ex, prep)
+        assert backend.prepare(ex, prep) is plan
+        assert backend.prepare(ex, object()) is not plan
+
+
+# ---------------- modeled echo ----------------
+
+def test_modeled_backend_echoes_modeled_cost(graphs):
+    def scenario(alg, core, pkg):
+        return _run_one(core, _engine(core, "modeled"),
+                        alg.PageRankExecutor(graphs[pkg], mode="pull", max_iters=3, tol=0))
+
+    rec, _ = both(scenario)
+    assert rec.modeled_ns > 0
+    assert rec.measured_ns == rec.modeled_ns
+
+
+def test_modeled_scheduling_identical_across_substrates(graphs):
+    def run(backend):
+        def scenario(alg, core, pkg):
+            return _engine(core, backend).run_sessions(_mixed_mk(alg, graphs[pkg]), sessions=4, queries_per_session=1,
+                                                       config=_fused_cfg(core))
+
+        return scenario
+
+    a, _ = both(run("modeled"), report_view)
+    for name, (alg, core) in packages().items():
+        b = run("inline")(alg, core, name)
+        assert [r.modeled_ns for r in a.records] == [r.modeled_ns for r in b.records]
+        assert [plain(r.traces) for r in a.records] == [plain(r.traces) for r in b.records]
+        assert a.makespan_modeled_ns == b.makespan_modeled_ns
+
+
+def test_modeled_echo_keeps_feedback_neutral(graphs):
+    def scenario(alg, core, pkg):
+        fb = core.CostFeedback()
+        cfg = _fused_cfg(core, width_feedback=True)
+        rep_fb = _engine(core, "modeled", feedback=fb).run_sessions(_mixed_mk(alg, graphs[pkg]), sessions=4,
+                                                                    queries_per_session=1, config=cfg)
+        rep_none = _engine(core, "modeled").run_sessions(_mixed_mk(alg, graphs[pkg]), sessions=4,
+                                                         queries_per_session=1, config=cfg)
+        return rep_fb, rep_none, fb
+
+    (rep_fb, rep_none, fb), _ = both(scenario, lambda o: (report_view(o[0]), report_view(o[1]), plain(o[2])))
+    assert fb.observations > 0 and fb.width_observations > 0
+    for (algo, par) in list(fb._log_corr):
+        assert fb.correction(algo, par) == pytest.approx(1.0)
+    for (algo, w) in list(fb._log_width):
+        assert fb.correction(algo, w >= 2, width=w) == pytest.approx(1.0)
+        assert fb.width_ratio(algo, w) == pytest.approx(1.0)
+    assert [r.modeled_ns for r in rep_fb.records] == [r.modeled_ns for r in rep_none.records]
+    assert rep_fb.makespan_modeled_ns == rep_none.makespan_modeled_ns
+
+
+# ---------------- CudaBackend lowerings (plain versions on the CPU) vs the references ----------------
+
+def test_cuda_pagerank_pull_matches_reference(graphs):
+    g, iters = graphs["torch"], 5
+    ex = talg.PageRankExecutor(g, mode="pull", max_iters=iters, tol=0)
+    rec = _run_one(tcore, _engine(tcore, "cuda"), ex)
+    np.testing.assert_allclose(ex.result(), talg.pagerank_reference(g, iters=iters), rtol=2e-4, atol=1e-8)
+    assert rec.edges == pytest.approx(g.num_edges * iters)
+    assert rec.measured_ns > 0
+    # the same modeled clock as the reference's modeled engine
+    jrec = _run_one(jcore, _engine(jcore, "modeled"),
+                    packages()["jax"][0].PageRankExecutor(graphs["jax"], mode="pull", max_iters=iters, tol=0))
+    assert (rec.modeled_ns, rec.edges, plain(rec.traces)) == (jrec.modeled_ns, jrec.edges, plain(jrec.traces))
+
+
+def test_cuda_bfs_matches_reference(graphs):
+    g = graphs["torch"]
+    src = int(np.argmax(g.out_degrees().numpy()))
+    ex = talg.BFSExecutor(g, src)
+    rec = _run_one(tcore, _engine(tcore, "cuda"), ex)
+    assert np.array_equal(ex.result(), talg.bfs_reference(g, src))
+    jalg = packages()["jax"][0]
+    jex = jalg.BFSExecutor(graphs["jax"], src)
+    _run_one(jcore, _engine(jcore, "modeled"), jex)
+    assert np.array_equal(ex.result(), np.asarray(jex.result()))
+    assert rec.measured_ns > 0
+
+
+def test_cuda_degree_count_matches_reference(graphs):
+    g = graphs["torch"]
+    ex = talg.DegreeCountExecutor(g)
+    _run_one(tcore, _engine(tcore, "cuda"), ex)
+    ref = talg.degree_count_reference(g.src.numpy(), g.dst.numpy(), ex.num_counters)
+    assert np.array_equal(ex.result(), ref)
+    jalg = packages()["jax"][0]
+    jex = jalg.DegreeCountExecutor(graphs["jax"])
+    _run_one(jcore, _engine(jcore, "modeled"), jex)
+    assert np.array_equal(ex.result(), np.asarray(jex.result()))
+
+
+# ---------------- measured time reaches the feedback loop ----------------
+
+def _skew_mk(alg, graph):
+    hubs = np.argsort(-np.asarray(graph.out_degrees()))
+    return lambda s, q: (alg.PageRankExecutor(graph, mode="pull", max_iters=6, tol=0) if s == 0
+                         else alg.BFSExecutor(graph, int(hubs[s % 8])))
+
+
+def test_backend_measurements_reach_feedback_stolen_path(graphs12):
+    fb = tcore.CostFeedback()
+    eng = tcore.MultiQueryEngine(tcore.XEON_E5_2660V4, pool_capacity=16, policy="scheduler", feedback=fb,
+                                 backend="inline")
+    rep = eng.run_sessions(_skew_mk(talg, graphs12["torch"]), sessions=8, queries_per_session=1,
+                           config=tcore.EngineConfig(steal=True, width_feedback=True))
+    assert rep.total_stolen > 0
+    assert fb.observations == sum(r.iterations for r in rep.records)
+    assert fb.width_observations > 0
+    assert any(r.measured_ns != r.modeled_ns for r in rep.records)
+
+
+def test_backend_measurements_reach_feedback_fused_path(graphs12):
+    fb = tcore.CostFeedback()
+    eng = tcore.MultiQueryEngine(tcore.XEON_E5_2660V4, pool_capacity=8, policy="scheduler", feedback=fb,
+                                 backend="inline")
+    g = graphs12["torch"]
+    rep = eng.run_sessions(lambda s, q: talg.PageRankExecutor(g, mode="pull", max_iters=3, tol=0), sessions=4,
+                           queries_per_session=1, config=tcore.EngineConfig(fuse=True, width_feedback=True))
+    assert rep.total_fused > 0
+    assert fb.width_observations > 0
+    assert all(r.measured_ns > 0 for r in rep.records)
+
+
+def test_cuda_measurements_populate_width_table(graphs):
+    fb = tcore.CostFeedback()
+    eng = tcore.MultiQueryEngine(tcore.XEON_E5_2660V4, pool_capacity=8, policy="scheduler", feedback=fb,
+                                 backend="cuda")
+    rep = eng.run_sessions(_mixed_mk(talg, graphs["torch"]), sessions=2, queries_per_session=1,
+                           config=tcore.EngineConfig(steal=True, width_feedback=True))
+    assert fb.width_observations > 0
+    assert all(r.measured_ns > 0 for r in rep.records)
+
+
+# ---------------- prepare is outside the measured window ----------------
+
+def _stub(core):
+    class SlowPrepareStub:
+        """A substrate whose preparation takes ~2 ms, far above any step,
+        and whose execute reports a fixed 7 ns."""
+
+        name = "slow-prepare-stub"
+
+        def __init__(self):
+            self.prepare_calls = 0
+            self.execute_calls = 0
+
+        def prepare(self, executor, prep):
+            self.prepare_calls += 1
+            time.sleep(0.002)
+            return core.DevicePlan(executor, prep)
+
+        def execute(self, plan, step, modeled_ns=0.0):
+            self.execute_calls += 1
+            plan.executor.run_packages(step.batch, plan.prep.packages,
+                                       step.workers if step.mode == "parallel" else 1,
+                                       parallel=step.mode == "parallel")
+            return 7.0
+
+    return SlowPrepareStub()
+
+
+def test_prepare_cost_never_pollutes_measured_time(graphs):
+    def scenario(alg, core, pkg):
+        stub = _stub(core)
+        rec = _run_one(core, _engine(core, stub), alg.PageRankExecutor(graphs[pkg], mode="pull", max_iters=3, tol=0))
+        return rec, stub.prepare_calls, stub.execute_calls
+
+    rec, prepares, executes = both(scenario)[0]
+    assert prepares > 0 and executes > 0
+    assert rec.measured_ns == pytest.approx(7.0 * executes)
+
+
+def test_custom_backend_instance_via_engine_config(graphs):
+    def scenario(alg, core, pkg):
+        stub = _stub(core)
+        eng = _engine(core, "modeled")
+        default = eng.backend
+        rep = eng.run_sessions(_mixed_mk(alg, graphs[pkg]), sessions=2, queries_per_session=1,
+                               config=core.EngineConfig(backend=stub))
+        assert eng.backend is default
+        return rep, stub.execute_calls
+
+    rep, executes = both(scenario, lambda o: (report_view(o[0]), o[1]))[0]
+    assert executes > 0
+    for r in rep.records:
+        assert r.measured_ns > 0
+        assert r.measured_ns % 7.0 == pytest.approx(0.0, abs=1e-9)
+
+
+# ---------------- config-only surface ----------------
+
+def test_run_sessions_rejects_legacy_kwargs(graphs):
+    def scenario(alg, core, pkg):
+        eng = _engine(core)
+        with pytest.raises(TypeError):
+            eng.run_sessions(_mixed_mk(alg, graphs[pkg]), sessions=2, queries_per_session=1, steal=True)
+        return eng.run_sessions(_mixed_mk(alg, graphs[pkg]), sessions=2, queries_per_session=1,
+                                config=core.EngineConfig(steal=True))
+
+    rep, _ = both(scenario, report_view)
+    assert len(rep.records) == 2

@@ -314,6 +314,109 @@ def test_cuda_backend_mixed_sessions(cuda):
     assert [r.traces for r in rep.records] == [r.traces for r in mrep.records]
 
 
+def _card_query(eng, ex):
+    rec = core.QueryRecord(0, 0, ex.desc.name)
+    eng.run_query(ex, rec)
+    torch.cuda.synchronize()
+    return rec
+
+
+def test_cuda_backend_single_queries_equal_oracles_on_card(cuda):
+    """The counterparts of the reference's ``PallasBackend`` lowering tests
+    (tests/test_backends.py): one PageRank-pull, BFS and degree-count query
+    each through ``backend="cuda"`` on a graph on the card, each equal to
+    its oracle, each launching its kernel, with the card's measured time."""
+    g = rmat_graph(10, seed=3, device=cuda)
+    eng = core.MultiQueryEngine(core.XEON_E5_2660V4, policy="scheduler", backend="cuda")
+    s0 = spmv_rows_cuda.launches
+    pr = alg.PageRankExecutor(g, mode="pull", max_iters=5, tol=0)
+    rec = _card_query(eng, pr)
+    np.testing.assert_allclose(pr.result(), alg.pagerank_reference(g, iters=5), rtol=2e-4, atol=1e-8)
+    assert rec.edges == pytest.approx(g.num_edges * 5) and rec.measured_ns > 0
+    src = int(np.argmax(g.out_degrees().cpu().numpy()))
+    bfs = alg.BFSExecutor(g, src)
+    assert _card_query(eng, bfs).measured_ns > 0
+    np.testing.assert_array_equal(bfs.result(), alg.bfs_reference(g, src))
+    assert spmv_rows_cuda.launches > s0
+    d0 = degree_count_cuda.launches
+    dc = alg.DegreeCountExecutor(g)
+    _card_query(eng, dc)
+    assert degree_count_cuda.launches > d0
+    want = alg.degree_count_reference(g.src.cpu().numpy(), g.dst.cpu().numpy(), dc.num_counters)
+    np.testing.assert_array_equal(dc.result(), want)
+
+
+def test_cuda_backend_results_stable_across_gang_widths_on_card(cuda):
+    """A solo wide-gang query and a contended 4-session run with stealing
+    (narrow, stolen, re-sliced gangs) give the same ranks on the card."""
+    g = rmat_graph(10, seed=3, device=cuda)
+    solo = alg.PageRankExecutor(g, mode="pull", max_iters=3, tol=0)
+    _card_query(core.MultiQueryEngine(core.XEON_E5_2660V4, policy="scheduler", backend="cuda"), solo)
+    made = []
+
+    def mk(s, q):
+        made.append(alg.PageRankExecutor(g, mode="pull", max_iters=3, tol=0))
+        return made[-1]
+
+    eng = core.MultiQueryEngine(core.XEON_E5_2660V4, pool_capacity=4, policy="scheduler", backend="cuda")
+    eng.run_sessions(mk, sessions=4, queries_per_session=1, config=core.EngineConfig(steal=True))
+    assert eng.pool.available == eng.pool.capacity
+    for ex in made:
+        np.testing.assert_allclose(ex.result(), solo.result(), rtol=1e-6)
+
+
+def _skew_mk(g):
+    hubs = np.argsort(-g.out_degrees().cpu().numpy())
+    return lambda s, q: (alg.PageRankExecutor(g, mode="pull", max_iters=6, tol=0) if s == 0
+                         else alg.BFSExecutor(g, int(hubs[s % 8])))
+
+
+def test_cuda_measurements_reach_feedback_stolen_path_on_card(cuda):
+    """Stolen batches carry the card's measured times into the §4.4 tables,
+    as plain steps do (tests/test_backends.py's stolen-path test, on the
+    ``cuda`` backend): every iteration observed once, width entries, and
+    records that are no modeled echo."""
+    g = rmat_graph(12, seed=3, device=cuda)
+    fb = core.CostFeedback()
+    eng = core.MultiQueryEngine(core.XEON_E5_2660V4, pool_capacity=16, policy="scheduler", feedback=fb,
+                                backend="cuda")
+    rep = eng.run_sessions(_skew_mk(g), sessions=8, queries_per_session=1,
+                           config=core.EngineConfig(steal=True, width_feedback=True))
+    assert rep.total_stolen > 0
+    assert fb.observations == sum(r.iterations for r in rep.records)
+    assert fb.width_observations > 0
+    assert any(r.measured_ns != r.modeled_ns for r in rep.records)
+    assert eng.pool.available == eng.pool.capacity
+
+
+def test_cuda_measurements_reach_feedback_fused_path_on_card(cuda):
+    """Fused split-back shares carry the card's measured times into the
+    member records and the width table."""
+    g = rmat_graph(12, seed=3, device=cuda)
+    fb = core.CostFeedback()
+    eng = core.MultiQueryEngine(core.XEON_E5_2660V4, pool_capacity=8, policy="scheduler", feedback=fb,
+                                backend="cuda")
+    rep = eng.run_sessions(lambda s, q: alg.PageRankExecutor(g, mode="pull", max_iters=3, tol=0), sessions=4,
+                           queries_per_session=1, config=core.EngineConfig(fuse=True, width_feedback=True))
+    assert rep.total_fused > 0
+    assert fb.width_observations > 0
+    assert all(r.measured_ns > 0 for r in rep.records)
+
+
+def test_cuda_measurements_populate_width_table_on_card(cuda):
+    g = rmat_graph(10, seed=3, device=cuda)
+    hubs = np.argsort(-g.out_degrees().cpu().numpy())
+    fb = core.CostFeedback()
+    eng = core.MultiQueryEngine(core.XEON_E5_2660V4, pool_capacity=8, policy="scheduler", feedback=fb,
+                                backend="cuda")
+    rep = eng.run_sessions(lambda s, q: (alg.PageRankExecutor(g, mode="pull", max_iters=3, tol=0) if s == 0
+                                         else alg.BFSExecutor(g, int(hubs[s % 4]))),
+                           sessions=2, queries_per_session=1,
+                           config=core.EngineConfig(steal=True, width_feedback=True))
+    assert fb.width_observations > 0
+    assert all(r.measured_ns > 0 for r in rep.records)
+
+
 @pytest.mark.parametrize("b", [1, 4, 5, 16, 17, 63, 64, 70, 512])
 @pytest.mark.parametrize("n,d", [(2048, 16), (6144, 256), (2048, 256), (6144, 16)])
 def test_scoring_kernel_matches_plain(cuda, b, n, d):
@@ -537,12 +640,13 @@ def test_two_tower_on_card_equals_cpu(cuda):
     assert torch.equal(i_card.cpu(), i_cpu)
 
 
-@pytest.mark.parametrize("dh", [32, 64, 128])
-@pytest.mark.parametrize("h,kh", [(4, 4), (32, 4), (48, 1), (48, 8), (56, 8)])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,kh", [(4, 4), (4, 2), (32, 4), (48, 1), (48, 8), (56, 8)])
 @pytest.mark.parametrize("s", [1, 64, 127, 128, 129, 200, 1000])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_kernel_matches_plain(cuda, dh, h, kh, s, dtype):
-    """G = H / K of 1, 8, 48, and grok-1's 6 and arctic's 7; S of one key,
+    """G = H / K of 1, the smoke configs' 2, 8, 48, and grok-1's 6 and
+    arctic's 7; head dims of the smoke configs (16) and the served ones; S of one key,
     one float32 tile, a ragged 128-row block, exactly one, the first row
     past it, a ragged fourth float32 tile, and many tiles."""
     g = torch.Generator(device=cuda).manual_seed(s * 7 + dh + h)
@@ -588,7 +692,7 @@ def test_flash_attention_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_cuda(q.transpose(1, 2), kv, kv)
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention_cuda(q[..., :16].contiguous(), kv[..., :16].contiguous(), kv[..., :16].contiguous())
+        flash_attention_cuda(q[..., :48].contiguous(), kv[..., :48].contiguous(), kv[..., :48].contiguous())
     with pytest.raises(ValueError, match="multiple"):
         flash_attention_cuda(q[:, :, :3].contiguous(), kv, kv)
     # a contiguous bf16 view 2 bytes past a 16-byte boundary: TMA cannot read it
@@ -631,9 +735,23 @@ def test_flash_attention_gradient_on_card_matches_plain_autograd(cuda, b, s, h, 
             torch.testing.assert_close(got.grad.float(), want.grad.float(), rtol=2**-6, atol=1e-2 * scale)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("dh", [8, 24, 48, 96, 256])
+def test_flash_attention_refuses_head_dims_it_is_not_built_for(cuda, dh, dtype):
+    """Head dims outside ``HEAD_DIMS`` raise on both paths, before any
+    launch, whatever the type: no fallback to the plain version."""
+    q = torch.zeros(1, 8, 4, dh, device=cuda, dtype=getattr(torch, dtype))
+    kv = torch.zeros(1, 8, 2, dh, device=cuda, dtype=q.dtype)
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match=f"head dim {dh} is not one of"):
+        flash_attention_cuda(q, kv, kv)
+    assert flash_attention_cuda.launches == before
+
+
 def test_lm_train_step_on_card_equals_cpu(cuda):
-    """One AdamW step of a small config (head dim 64, S = 40 > block_kv, two
-    microbatches, remat) on the card against the same step on the CPU:
+    """One AdamW step of a small config (head dim 64, beside the smoke
+    configs' 16 below; S = 40 > block_kv, two microbatches, remat) on the
+    card against the same step on the CPU:
     two flash launches a layer and microbatch (the forward and its
     recomputation), and the same loss, gradient norm and weights. AdamW's
     eps is 1e-4 (tests/test_torch_train.py: a default-eps step of an element
@@ -718,8 +836,9 @@ def test_moe_block_on_card_equals_cpu(cuda, dispatch, groups, cf):
 
 
 def test_moe_prefill_on_card_launches_the_kernel_and_equals_cpu(cuda):
-    """A small grok-like config at a head dim the kernel takes (64): one
-    launch a layer, logits and caches as on the CPU, then a decode step."""
+    """A small grok-like config at a served head dim (64; the smoke configs'
+    16 runs below): one launch a layer, logits and caches as on the CPU,
+    then a decode step."""
     cfg = tf.LMConfig(name="card-moe", n_layers=2, d_model=128, n_heads=6, n_kv_heads=1, head_dim=64,
                       d_ff=256, vocab=300, dtype=torch.float32, block_kv=16,
                       moe=moe.MoEConfig(num_experts=4, capacity_factor=1.0, dense_residual=True))
@@ -738,6 +857,95 @@ def test_moe_prefill_on_card_launches_the_kernel_and_equals_cpu(cuda):
     step, cache = tf.decode_step(cfg, card, nxt, cache)
     want_step, _ = tf.decode_step(cfg, cpu, nxt.cpu(), want_cache)
     torch.testing.assert_close(step.cpu(), want_step, rtol=1e-4, atol=1e-5)
+
+
+# the five LM archs' smoke configs (head dim 16, float32), the MoE ones under
+# both dispatches
+SMOKE_CASES = [("tinyllama-1.1b", None), ("stablelm-1.6b", None), ("granite-34b", None),
+               ("grok-1-314b", "dense"), ("grok-1-314b", "gather"),
+               ("arctic-480b", "dense"), ("arctic-480b", "gather")]
+
+
+def _smoke_cfg(arch, dispatch, **over):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch).make_smoke_config()
+    if dispatch is not None:
+        over["moe"] = dataclasses.replace(cfg.moe, dispatch=dispatch)
+    return dataclasses.replace(cfg, **over)
+
+
+@pytest.mark.parametrize("arch,dispatch", SMOKE_CASES)
+def test_smoke_config_prefill_on_card_launches_the_kernel_and_equals_cpu(cuda, arch, dispatch):
+    """Prefill of each smoke config (Dh = 16, S = 77 > block_kv) through
+    the kernel, one launch a layer, logits and caches as on the CPU (the
+    tolerances of the head-dim-64 test above), then a decode step."""
+    cfg = _smoke_cfg(arch, dispatch)
+    assert cfg.dh == 16
+    cpu = tf.TransformerLM(cfg, seed=3, device="cpu")
+    card = tf.TransformerLM(cfg, seed=4, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 77)).astype(np.int32))
+    before = flash_attention_cuda.launches
+    logits, cache = tf.prefill(cfg, card, toks.to(cuda), 80)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    want, want_cache = tf.prefill(cfg, cpu, toks, 80)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(cache["k"].cpu(), want_cache["k"], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(cache["v"].cpu(), want_cache["v"], rtol=1e-4, atol=1e-5)
+    nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+    step, cache = tf.decode_step(cfg, card, nxt, cache)
+    want_step, _ = tf.decode_step(cfg, cpu, nxt.cpu(), want_cache)
+    torch.testing.assert_close(step.cpu(), want_step, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,dispatch", SMOKE_CASES)
+def test_smoke_config_train_step_on_card_equals_cpu(cuda, arch, dispatch):
+    """One AdamW step of each smoke config (Dh = 16, S = 40 > block_kv, two
+    microbatches, remat) on the card against the CPU, as
+    ``test_lm_train_step_on_card_equals_cpu`` holds the head-dim-64 config:
+    two launches a layer and microbatch, the same loss, gradient norm and
+    weights; AdamW's eps 1e-4 for the reason given there."""
+    from repro_torch.launch.steps import lm_train_step
+    from repro_torch._tree import tree_leaves
+    from repro_torch.optim import OptimizerConfig, adamw_init
+
+    cfg = _smoke_cfg(arch, dispatch, microbatches=2, remat=True)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, decay_steps=10, eps=1e-4)
+    cpu = tf.TransformerLM(cfg, seed=3, device="cpu", masters=True)
+    card = tf.TransformerLM(cfg, seed=4, device=cuda, masters=True)
+    card.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (4, 41)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:].copy())}
+    before = flash_attention_cuda.launches
+    card, card_st, m = lm_train_step(cfg, opt)(card, adamw_init(tf.params_tree(card)),
+                                               {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 2 * cfg.n_layers * cfg.microbatches
+    cpu, cpu_st, want = lm_train_step(cfg, opt)(cpu, adamw_init(tf.params_tree(cpu)), batch)
+    torch.testing.assert_close(m["loss"].cpu(), want["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(m["gnorm"].cpu(), want["gnorm"], rtol=1e-4, atol=0)
+    for a, b in zip(tree_leaves(tf.params_tree(card)), tree_leaves(tf.params_tree(cpu))):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6)
+    assert int(card_st["step"]) == 1
+
+
+def test_trainer_runs_with_its_defaults_on_card(cuda):
+    """``python -m repro_torch.launch.train`` with no arguments: TinyLlama's
+    smoke config (Dh = 16, no remat, one microbatch), 100 steps of 8 × 128
+    tokens on the card, one launch a layer and step (S = 128 > block_kv),
+    and the last logged loss below step 0's."""
+    from repro_torch.launch import train
+
+    before = flash_attention_cuda.launches
+    out = train.main([])
+    torch.cuda.synchronize()
+    cfg = train.build_small_lm("tinyllama-1.1b")
+    assert next(out["model"].parameters()).device.type == "cuda"
+    assert len(out["step_s"]) == 100
+    assert flash_attention_cuda.launches - before == 100 * cfg.n_layers
+    assert out["losses"][-1][1] < out["losses"][0][1]
 
 
 def test_serving_engine_drains_on_card(cuda):
