@@ -10,7 +10,8 @@ retrieval server at the full width of ``make_config()`` (18.54 GB of
 tables), TinyLlama-1.1B serving at full width and depth, MoE serving
 (grok-1, arctic) at full width with depth cut, and TinyLlama-1.1B training
 at full width and depth, then the LM smoke configs (head dim 16) on the
-card. For a quick check at small
+card, then the GNN family (MeshGraphNet, PNA, SchNet, GraphCast) trained at
+the published widths. For a quick check at small
 sizes run ``tests/test_torch_cuda.py``. Phases, each raising on failure:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
@@ -126,7 +127,25 @@ sizes run ``tests/test_torch_cuda.py``. Phases, each raising on failure:
     card (one launch a layer; two a layer and microbatch under remat) equal
     to the same on the CPU, and ``launch.train.main([])`` runs with its
     defaults on the card (the loss falls, one launch a layer and step);
-13. isolation — neither JAX nor the JAX package was imported.
+13. GNN family — (a) each GNN smoke config (MeshGraphNet, PNA, SchNet,
+    GraphCast; tests/test_arch_smoke.py's 48-node, 160-edge, 4-graph
+    batch; GraphCast also owner-blocked, P = 4) forward and one AdamW
+    ``gnn_train_step`` on the card equal to the CPU; (b)
+    ``examples/gnn_train.py``'s loop (MeshGraphNet 4 × 64 on
+    ``rmat_graph(11, seed=1)``, 60 steps) on the card, its first 5 losses
+    within 1e-5 of a CPU run's (the same steps with TF32 products past it)
+    and the loss falling; (c) each config's
+    ``make_config`` at its reference shape (``minibatch_lg``: 169,984 nodes,
+    168,960 RMAT edges, 602 features; SchNet ``molecule``: 128 molecules of
+    30 atoms) laid out as the reference's ``gnn_abstract_batch``, 5 AdamW
+    steps: step 0's loss within 1e-6 of a float64 copy's (a forward with
+    TF32 products past it), the losses
+    finite and falling, step ms, message-passing edges/s, peak memory and a
+    profiled step (device time by kernel, idle share); GraphCast also
+    owner-blocked at P = 512 (its loss equal to the flat forward's on the
+    same edges, then 3 steps). None of the five kernels runs here: their
+    counts stay 0;
+14. isolation — neither JAX nor the JAX package was imported.
 
 The kernels' times go out as one JSON line. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -275,6 +294,38 @@ SMALL_DH_CASES = (("tinyllama-1.1b", None), ("stablelm-1.6b", None), ("granite-3
                   ("grok-1-314b", "dense"), ("grok-1-314b", "gather"),
                   ("arctic-480b", "dense"), ("arctic-480b", "gather"))
 SMALL_DH_PROMPT, SMALL_DH_TRAIN_SEQ = 77, 40
+
+# the GNN family (models/gnn): (a) each smoke config on the smoke batch of
+# tests/test_arch_smoke.py (48 nodes, 160 edges, 4 graphs; GraphCast also
+# owner-blocked, P = 4 blocks of 12 nodes, 48 edge slots, 40 valid) against
+# the CPU: forward, loss, gradient norm and weights after one AdamW step,
+# tests/_torch_gnn.py's card_equals_cpu at its tolerances
+GNN_ARCHS = ("meshgraphnet", "pna", "schnet", "graphcast")
+# (b) examples/gnn_train.py's loop: MeshGraphNet 4 x 64 on rmat_graph(11,
+# seed=1), GraphBatchStream(batch_nodes=32, fanouts=(6, 4), d_feat=16),
+# AdamW lr 1e-3 warmup 5 decay 100, clip 1.0, 60 steps; its first steps
+# against a CPU run of the same loop within GNN_LOOP_RTOL, and the same
+# steps with TF32 products (the control) past it. Readings on an H100:
+# 1.2e-7 and 1.9e-7 from the CPU, the control 5.9e-3 to 8.3e-3 (PERF.md §6)
+GNN_LOOP_STEPS, GNN_LOOP_CPU_STEPS, GNN_LOOP_RTOL = 60, 5, 1e-5
+# (c) each config's make_config(shape) at its reference shape (GNN_SHAPES),
+# laid out as the reference's gnn_abstract_batch (pad_to(512) nodes and
+# edges, the padded tail masked), AdamW (the configs' OptimizerConfig), 5
+# steps; step 0's loss against a float64 copy of the same module within
+# GNN_F64_RTOL, and the float32 forward with TF32 products (the control)
+# past it. Readings on an H100: float32 5.4e-9 to 1.3e-7 from float64, the
+# controls 2.9e-5 (GraphCast) to 1.9e-4 (MeshGraphNet) (PERF.md §6)
+GNN_FULL = {"meshgraphnet": "minibatch_lg", "pna": "minibatch_lg", "graphcast": "minibatch_lg",
+            "schnet": "molecule"}
+GNN_STEPS = 5
+GNN_F64_RTOL = 1e-6
+GNN_RMAT_SCALE = 18  # the edges of minibatch_lg: rmat_edges(18, seed=3), ends mod n_nodes
+GNN_MOLECULE_ATOMS, GNN_BOND = 30, 1.5  # atoms a molecule (3,840 in 128), Å between chained atoms
+# GraphCast's owner-blocked path: the reference's default P = 512 blocks,
+# Epb = pad_to(ceil(E / P), 128) = 384 slots, E / P = 330 valid a block with
+# dst inside the owner's rows; its loss against the flat forward's on the
+# same edges (the same sums in another order), then GNN_BLOCKED_STEPS steps
+GNN_BLOCKS, GNN_BLOCKED_STEPS = 512, 3
 
 TIMED_BATCHES, TIMED_PER_BATCH = 5, 20
 # published H100 peaks (NVIDIA data sheets): HBM bytes/s by part, the
@@ -2360,6 +2411,322 @@ def small_head_dims_path(dev: torch.device, bw: float) -> dict:
     return {"shapes": shapes, "launches": launches, "cases": cases, "trainer": trainer}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the GNN family
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def tf32_products():
+    """float32 products on the tensor cores in TF32 (10-bit mantissas) for
+    the block: phase 13's control, a forward of lower precision that each
+    precision check must refuse."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def gnn_smoke_on_card(dev) -> list[dict]:
+    """13(a): each smoke config's forward and one AdamW step on the card
+    against the CPU (GraphCast also owner-blocked, P = 4)."""
+    from _torch_gnn import CARD_CASES, card_equals_cpu
+
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for arch, blocked in CARD_CASES:
+        cases.append(card_equals_cpu(arch, blocked, dev, rng, seed=SEED))
+        log(json.dumps({"gnn_smoke_on_card": cases[-1]}))
+    return cases
+
+
+def gnn_example_loop(dev) -> dict:
+    """13(b): examples/gnn_train.py's loop on the card, its first steps
+    against the same loop on the CPU."""
+    from repro_torch.data import GraphBatchStream
+    from repro_torch.graph import rmat_graph
+    from repro_torch.launch.steps import gnn_train_step
+    from repro_torch.models.gnn import meshgraphnet as mgn
+    from repro_torch.models.gnn.common import params_tree
+    from repro_torch.optim import OptimizerConfig, adamw_init
+
+    cfg = mgn.MGNConfig(n_layers=4, d_hidden=64, d_node_in=16, d_edge_in=8, d_out=3)
+    opt = OptimizerConfig(name="adamw", lr=1e-3, warmup_steps=5, decay_steps=100)
+    step = gnn_train_step(mgn, cfg, opt, n_graphs=1)  # clip_norm 1.0, the example's
+
+    def run(device, steps: int, state: dict | None) -> tuple[list[float], list[float], dict]:
+        model = mgn.MeshGraphNet(cfg, seed=0, device=device)
+        if state is not None:
+            model.load_state_dict(state)
+        init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        opt_state = adamw_init(params_tree(model))
+        stream = GraphBatchStream(rmat_graph(11, seed=1, device=device), batch_nodes=32, fanouts=(6, 4),
+                                  d_feat=16, device=device)
+        losses, secs = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            raw = next(stream)
+            n, e = raw["nodes"].shape[0], raw["src"].shape[0]
+            batch = dict(nodes=raw["feats"], src=raw["src"], dst=raw["dst"],
+                         edge_feat=torch.ones(e, 8, device=raw["feats"].device),
+                         node_mask=raw["node_mask"], edge_mask=raw["edge_mask"],
+                         graph_ids=torch.zeros(n, dtype=torch.int32, device=raw["feats"].device),
+                         targets=raw["feats"][:, :3] * 0.5)
+            model, opt_state, m = step(model, opt_state, batch)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+        return losses, secs, init
+
+    losses, secs, init = run(dev, GNN_LOOP_STEPS, None)
+    want, _, _ = run("cpu", GNN_LOOP_CPU_STEPS, init)
+    with tf32_products():  # the control: the same first steps with TF32 products
+        control, _, _ = run(dev, GNN_LOOP_CPU_STEPS, init)
+    rel = float(np.max(np.abs(np.array(losses[:len(want)]) / np.array(want) - 1)))
+    rel_control = float(np.max(np.abs(np.array(control) / np.array(want) - 1)))
+    if not rel <= GNN_LOOP_RTOL < rel_control:
+        raise AssertionError(f"the example's first {len(want)} losses on the card are {rel} from the CPU's, the TF32 "
+                             f"control's {rel_control}: want the first within {GNN_LOOP_RTOL}, the control past it")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the example's loop did not fall: {losses[0]} -> {losses[-1]}")
+    record = {"steps": GNN_LOOP_STEPS, "loss_first": losses[0], "loss_last": losses[-1],
+              "losses_every_10": losses[::10], "cpu_losses": want, "first_steps_max_rel_diff": rel,
+              "tf32_control_losses": control, "tf32_control_max_rel_diff": rel_control,
+              "step_ms_median": float(np.median(secs)) * 1e3, "wall_s": float(np.sum(secs))}
+    log(json.dumps({"gnn_example_loop": record}))
+    return record
+
+
+def gnn_full_batches(dev) -> dict:
+    """13(c)'s inputs on the card, as numpy from the seed: minibatch_lg's
+    nodes, edges and features (shared by MeshGraphNet, PNA and GraphCast)
+    and molecule's atoms (SchNet), each laid out as gnn_abstract_batch."""
+    from _torch_gnn import to_torch
+    from repro_torch.graph import rmat_edges
+    from repro_torch.launch.steps import GNN_SHAPES, pad_to
+
+    rng = np.random.default_rng(SEED)
+    sh = GNN_SHAPES["minibatch_lg"]
+    n_real, e_real = sh["n_nodes"], sh["n_edges"]
+    n, e = pad_to(n_real), pad_to(e_real)
+    src_all, dst_all = rmat_edges(GNN_RMAT_SCALE, seed=SEED)
+    src, dst = np.zeros(e, np.int32), np.zeros(e, np.int32)
+    src[:e_real], dst[:e_real] = src_all[:e_real] % n_real, dst_all[:e_real] % n_real
+    feats = rng.standard_normal((n, sh["d_feat"]), dtype=np.float32)
+    feats[n_real:] = 0
+    edge_feat = rng.standard_normal((e, 8), dtype=np.float32)
+    edge_feat[e_real:] = 0
+    lg = dict(nodes=feats, src=src, dst=dst, edge_feat=edge_feat, node_mask=np.arange(n) < n_real,
+              edge_mask=np.arange(e) < e_real, graph_ids=np.zeros(n, np.int32))
+    in_deg = np.bincount(dst[:e_real], minlength=n_real)
+
+    sh = GNN_SHAPES["molecule"]
+    n_real, e_real, g = sh["n_nodes"], sh["n_edges"], sh["n_graphs"]
+    n, e = pad_to(n_real), pad_to(e_real)
+    per, a = e_real // g, GNN_MOLECULE_ATOMS
+    step = rng.normal(size=(g, a, 3))
+    step *= GNN_BOND / np.linalg.norm(step, axis=-1, keepdims=True)
+    pos = np.zeros((n, 3), np.float32)
+    pos[:n_real] = np.cumsum(step, axis=1).reshape(-1, 3)  # a chain of atoms GNN_BOND apart
+    i = rng.integers(0, a, (g, per))
+    j = (i + rng.integers(1, a, (g, per))) % a
+    base = (np.arange(g) * a)[:, None]
+    nodes = np.zeros((n, sh["d_feat"]), np.float32)
+    nodes[:n_real, 0] = rng.integers(1, 10, n_real)  # column 0: the atom type
+    nodes[:n_real, 1:] = rng.standard_normal((n_real, sh["d_feat"] - 1), dtype=np.float32)
+    src, dst = np.zeros(e, np.int32), np.zeros(e, np.int32)
+    src[:e_real], dst[:e_real] = (base + i).reshape(-1), (base + j).reshape(-1)
+    graph_ids = np.zeros(n, np.int32)
+    graph_ids[:n_real] = np.arange(n_real) // a
+    mol = dict(nodes=nodes, src=src, dst=dst, edge_feat=np.zeros((e, 1), np.float32),
+               node_mask=np.arange(n) < n_real, edge_mask=np.arange(e) < e_real, graph_ids=graph_ids,
+               positions=pos, targets=rng.normal(size=g).astype(np.float32))
+    return {"minibatch_lg": to_torch(lg, dev), "molecule": to_torch(mol, dev),
+            "src_all": src_all, "in_degree_zero_share": float((in_deg == 0).mean()),
+            "in_degree_max": int(in_deg.max())}
+
+
+def gnn_train_cell(dev, arch: str, cfg, batch: dict, n_graphs: int, mp_layers: int, n_edges: int,
+                   *, blocked: bool = False, steps: int = GNN_STEPS, f64: bool = True) -> dict:
+    """``steps`` AdamW steps of ``gnn_train_step`` (the configs'
+    OptimizerConfig) from a seeded model: step 0's loss against a float64
+    copy's forward (and, as the control that shows this check can see a
+    loss of precision, the float32 forward with TF32 products), the losses
+    finite and falling, the step times, edges/s, the peak memory and one
+    profiled step."""
+    from _torch_gnn import port_model, port_module
+    from repro_torch.launch.steps import gnn_train_step
+    from repro_torch.models.gnn.common import params_tree
+    from repro_torch.optim import OptimizerConfig, adamw_init
+
+    mod = port_module(arch)
+    loss_fn = mod.loss_fn_blocked if blocked else mod.loss_fn
+    model = port_model(arch, cfg, device=dev, seed=SEED)
+    loss64 = loss_tf32 = None
+    if f64:
+        cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+        with torch.no_grad():
+            m64 = port_model(arch, cfg64, model.state_dict(), device=dev, seed=SEED)
+            loss64 = float(loss_fn(cfg64, m64, dict(batch, n_graphs=n_graphs)))
+            del m64
+            with tf32_products():
+                loss_tf32 = float(loss_fn(cfg, model, dict(batch, n_graphs=n_graphs)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt_cfg = OptimizerConfig(name="adamw")
+    opt_state = adamw_init(params_tree(model))
+    step = gnn_train_step(mod, cfg, opt_cfg, n_graphs=n_graphs, blocked=blocked)
+    losses, gnorms, secs = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt_state, m = step(model, opt_state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        gnorms.append(float(m["gnorm"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{arch}{' blocked' if blocked else ''}: losses {losses} not finite and falling")
+    if loss64 is not None and not abs(losses[0] - loss64) <= GNN_F64_RTOL * abs(loss64):
+        raise AssertionError(f"{arch}: step 0's loss {losses[0]} is not within {GNN_F64_RTOL} of float64's {loss64}")
+    if loss64 is not None and not abs(loss_tf32 - loss64) > GNN_F64_RTOL * abs(loss64):
+        raise AssertionError(f"{arch}: the TF32 control's loss {loss_tf32} is within {GNN_F64_RTOL} of float64's "
+                             f"{loss64} (step 0's {losses[0]}): the check cannot see a loss of precision")
+    by_name, pwall = device_time_from_trace(lambda: step(model, opt_state, batch), tries=3)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    med = float(np.median(secs[1:]))
+    record = {"arch": arch, "blocked": blocked, "layers": mp_layers, "edges": n_edges,
+              "nodes": int(batch["nodes"].shape[0]), "params": sum(p.numel() for p in model.parameters()),
+              "losses": losses, "gnorms": gnorms, "loss_float64": loss64,
+              "step0_rel_diff_float64": None if loss64 is None else abs(losses[0] - loss64) / abs(loss64),
+              "loss_tf32_control": loss_tf32,
+              "tf32_control_rel_diff_float64": None if loss64 is None else abs(loss_tf32 - loss64) / abs(loss64),
+              "step_ms_all": [x * 1e3 for x in secs], "step_ms_median": med * 1e3,
+              "edges_per_s": n_edges * mp_layers / med, "peak_gb": peak / 1e9,
+              "profiled_step": {"wall_ms": pwall * 1e3, "device_busy_ms": busy,
+                                "device_idle_share": 1.0 - busy / (pwall * 1e3),
+                                "top_kernels_ms": {short_kernel_name(k_, 70): v_ for k_, v_ in top}}}
+    log(json.dumps({"gnn_full_width": record}))
+    del model, opt_state
+    return record
+
+
+def gnn_blocked_full(dev, cfg, lg: dict, src_all: np.ndarray) -> dict:
+    """GraphCast's owner-blocked path at minibatch_lg with P = GNN_BLOCKS:
+    E / P edges a block, each block's dst inside its owner's rows; the
+    blocked loss against the flat forward's on the same edges, then
+    GNN_BLOCKED_STEPS training steps."""
+    from _torch_gnn import port_model, to_torch
+    from repro_torch.launch.steps import GNN_SHAPES, pad_to
+    from repro_torch.models.gnn import graphcast
+
+    sh = GNN_SHAPES["minibatch_lg"]
+    n, e_real = lg["nodes"].shape[0], sh["n_edges"]
+    p = GNN_BLOCKS
+    npb, per = n // p, e_real // p
+    epb = pad_to(-(-pad_to(e_real) // p), 128)
+    if per * p != e_real or npb * p != n:
+        raise AssertionError(f"minibatch_lg does not split into {p} even blocks")
+    rng = np.random.default_rng(SEED + 1)
+    mask = np.zeros((p, epb), bool)
+    mask[:, :per] = True
+    src = np.zeros((p, epb), np.int32)
+    src[:, :per] = (src_all[:e_real] % n).reshape(p, per)
+    dstl = np.zeros((p, epb), np.int32)
+    dstl[:, :per] = rng.integers(0, npb, (p, per))
+    ef = np.zeros((p, epb, cfg.d_edge_in), np.float32)
+    ef[:, :per] = lg["edge_feat"][:e_real, :cfg.d_edge_in].cpu().numpy().reshape(p, per, -1)
+    blocked = dict(lg, **to_torch(dict(src=src, dst_local=dstl, edge_feat=ef, edge_mask=mask), dev))
+    blocked.pop("dst")
+    flat = dict(lg, **to_torch(dict(
+        src=src[:, :per].reshape(-1), dst=(dstl[:, :per] + np.arange(p)[:, None] * npb).reshape(-1).astype(np.int32),
+        edge_feat=ef[:, :per].reshape(-1, cfg.d_edge_in), edge_mask=np.ones(e_real, bool)), dev))
+    model = port_model("graphcast", cfg, device=dev, seed=SEED)
+    with torch.no_grad():
+        loss_b = float(graphcast.loss_fn_blocked(cfg, model, dict(blocked, n_graphs=1)))
+        loss_f = float(graphcast.loss_fn(cfg, model, dict(flat, n_graphs=1)))
+    del model, flat
+    log(json.dumps({"gnn_graphcast_blocked_vs_flat": {"blocks": p, "edges_per_block": per, "slots_per_block": epb,
+                                                       "loss_blocked": loss_b, "loss_flat": loss_f}}))
+    if not abs(loss_b - loss_f) <= 1e-5 * abs(loss_f):
+        raise AssertionError(f"graphcast: the blocked loss {loss_b} is not the flat forward's {loss_f}")
+    record = gnn_train_cell(dev, "graphcast", cfg, blocked, 1, cfg.n_layers + 2, e_real, blocked=True,
+                            steps=GNN_BLOCKED_STEPS, f64=False)
+    record.update(blocks=p, edges_per_block=per, slots_per_block=epb, loss_blocked=loss_b, loss_flat=loss_f)
+    return record
+
+
+def gnn_path(dev: torch.device) -> dict:
+    """Phase 13: the GNN family. (a) the smoke configs on the card against
+    the CPU; (b) examples/gnn_train.py's loop; (c) each config's
+    make_config at its reference shape, trained 5 steps (GraphCast also
+    owner-blocked at P = 512). None of the five kernels runs on this path
+    (message passing is index_add/scatter_reduce, as the reference's
+    segment_sum lies outside any pallas_call): each wrapper's count stays 0."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import flash_attention_cuda
+    from repro_torch.kernels.degree_count import degree_count_cuda
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.kernels.scoring import scoring_cuda
+    from repro_torch.kernels.spmv import spmv_rows_cuda
+    from repro_torch.launch.steps import GNN_SHAPES
+
+    wrappers = {"spmv": spmv_rows_cuda, "degree_count": degree_count_cuda, "scoring": scoring_cuda,
+                "embedding_bag": embedding_bag_cuda, "flash_attention": flash_attention_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    t_phase = time.perf_counter()
+    smoke = gnn_smoke_on_card(dev)
+    t_a = time.perf_counter() - t_phase
+    loop = gnn_example_loop(dev)
+    t_b = time.perf_counter() - t_phase - t_a
+
+    data = gnn_full_batches(dev)
+    lg, mol = data["minibatch_lg"], data["molecule"]
+    log(json.dumps({"gnn_inputs": {"minibatch_lg_in_degree_zero_share": data["in_degree_zero_share"],
+                                   "minibatch_lg_in_degree_max": data["in_degree_max"]}}))
+    feats = lg["nodes"]
+    full = []
+    for arch in GNN_ARCHS:
+        shape = GNN_FULL[arch]
+        cfg = get_arch(arch).make_config(shape)
+        n_graphs = GNN_SHAPES[shape]["n_graphs"]
+        if arch == "schnet":
+            batch, layers = mol, cfg.n_interactions
+        else:  # edge features: the reference cells' d_edge (PNA reads none: 1)
+            batch = dict(lg, edge_feat=lg["edge_feat"][:, :getattr(cfg, "d_edge_in", 1)])
+            if arch == "meshgraphnet":
+                batch["targets"], layers = feats[:, :cfg.d_out] * 0.5, cfg.n_layers
+            elif arch == "pna":
+                batch["targets"], layers = feats[:, :cfg.n_classes].argmax(-1).to(torch.int32), cfg.n_layers
+            else:
+                batch["targets"], layers = feats * 0.5, cfg.n_layers + 2
+        n_edges = int(batch["edge_mask"].sum())
+        full.append(gnn_train_cell(dev, arch, cfg, batch, n_graphs, layers, n_edges))
+        full[-1]["shape"] = shape
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch == "graphcast":
+            lg["targets"] = feats * 0.5
+            full.append(gnn_blocked_full(dev, cfg, lg, data["src_all"]))
+            full[-1]["shape"] = shape
+            del lg["targets"]
+            gc.collect()
+            torch.cuda.empty_cache()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    if any(launches.values()):
+        raise AssertionError(f"the GNN phase launched kernels of other paths: {launches}")
+    record = {"smoke": smoke, "example_loop": loop, "full_width": full,
+              "kernel_launches": launches, "checks_a_s": t_a, "checks_b_s": t_b,
+              "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps({"gnn_path": {k: v for k, v in record.items() if k not in ("smoke", "full_width")}}))
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2368,6 +2735,7 @@ def main() -> int:
         print(f"chip_smoke: needs one CUDA device, sees {torch.cuda.device_count()}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.append(str(ROOT / "tests"))  # _torch_gnn: phase 13's smoke batches and card case
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -2463,7 +2831,16 @@ def main() -> int:
     flash["max_abs_err"] = max(flash["max_abs_err"], small["shapes"][0]["max_abs_err"]["bf16"],
                                small["shapes"][1]["max_abs_err"]["float32"])
 
-    # 13. isolation -------------------------------------------------------------
+    # 13. the GNN family --------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gnn = gnn_path(dev)
+    log(f"gnn phase: {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        k.setdefault("launches_by_phase", {})["gnn"] = gnn["kernel_launches"][k["name"]]
+
+    # 14. isolation -------------------------------------------------------------
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     if leaked:
         raise AssertionError(f"imported the JAX side: {leaked}")

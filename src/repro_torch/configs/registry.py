@@ -1,6 +1,6 @@
 """Arch registry over the configs ported so far. The reference's registry
 (``repro.configs.registry``) knows eleven archs; an arch not ported yet
-raises ``KeyError`` naming the ones that are."""
+(``paper-graph-engine``) raises ``KeyError`` naming the ones that are."""
 from __future__ import annotations
 
 from importlib import import_module
@@ -12,6 +12,10 @@ _MODULES = {
     "two-tower-retrieval": "two_tower_retrieval",
     "grok-1-314b": "grok_1_314b",
     "arctic-480b": "arctic_480b",
+    "meshgraphnet": "meshgraphnet",
+    "graphcast": "graphcast",
+    "pna": "pna",
+    "schnet": "schnet",
 }
 
 PORTED_ARCHS = list(_MODULES)

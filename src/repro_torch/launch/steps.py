@@ -1,20 +1,33 @@
-"""Cell shapes and the LM training step. The retrieval server and the LM
-configs read the shapes from here. The reference's ``CellProgram``,
-``make_lm_cell`` and the GNN and recsys cell programs wait for the
-dry-run slice."""
+"""Cell shapes and the LM and GNN training steps. The retrieval server and
+the configs read the shapes from here. The reference's ``CellProgram``,
+``make_lm_cell``, ``make_gnn_cell`` (with ``gnn_abstract_batch``) and the
+recsys cell programs wait for the dry-run slice."""
 from __future__ import annotations
 
 import torch
 
 from ..models import transformer as tf
 from .._tree import tree_map
+from ..models.gnn.common import params_tree as gnn_params_tree
 from ..optim import OptimizerConfig, clip_by_global_norm, make_optimizer
+
+
+def pad_to(n: int, multiple: int = 512) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
 
 LM_SHAPES = {
     "train_4k": dict(kind="train", seq=4096, batch=256),
     "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
     "decode_32k": dict(kind="decode", seq=32768, batch=128),
     "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+GNN_SHAPES = {
+    "full_graph_sm": dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_graphs=1),
+    "minibatch_lg": dict(n_nodes=169_984, n_edges=168_960, d_feat=602, n_graphs=1),
+    "ogb_products": dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100, n_graphs=1),
+    "molecule": dict(n_nodes=3840, n_edges=8192, d_feat=16, n_graphs=128),
 }
 
 RECSYS_SHAPES = {
@@ -56,5 +69,32 @@ def lm_train_step(cfg: tf.LMConfig, opt_cfg: OptimizerConfig):
         params, opt_state = update(opt_cfg, grads, opt_state, tf.params_tree(model))
         model.load_state_dict(tf.params_from_jax(cfg, params))
         return model, opt_state, {"loss": loss, "gnorm": gnorm}
+
+    return step
+
+
+def gnn_train_step(model_mod, cfg, opt_cfg: OptimizerConfig, *, n_graphs: int, blocked: bool = False):
+    """``step(model, opt_state, batch) -> (model, opt_state, metrics)``: the
+    body of the reference's ``make_gnn_cell`` program for a GNN model of
+    ``model_mod`` (``models.gnn.meshgraphnet``, ``pna``, ``schnet`` or
+    ``graphcast``; ``blocked``: GraphCast's ``loss_fn_blocked``). The value
+    and gradient of the loss on ``batch`` (with ``n_graphs`` set, as the
+    cell's shape sets it), global-norm clipping, then the optimizer update
+    over the reference's tree (``models.gnn.common.params_tree``: stacked
+    layer leaves). The model's weights are updated in place; ``opt_state``
+    is a new tree. ``metrics`` holds ``loss`` and ``gnorm`` as 0-d tensors."""
+    _, update = make_optimizer(opt_cfg)
+    loss_fn = model_mod.loss_fn_blocked if blocked else model_mod.loss_fn
+
+    def step(model, opt_state, batch):
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(cfg, model, dict(batch, n_graphs=n_graphs))
+        loss.backward()
+        grads = gnn_params_tree(model, grads=True)
+        model.zero_grad(set_to_none=True)
+        grads, gnorm = clip_by_global_norm(grads, opt_cfg.clip_norm)
+        params, opt_state = update(opt_cfg, grads, opt_state, gnn_params_tree(model))
+        model.load_state_dict(model_mod.params_from_jax(cfg, params))
+        return model, opt_state, {"loss": loss.detach(), "gnorm": gnorm}
 
     return step

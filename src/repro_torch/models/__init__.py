@@ -1,3 +1,4 @@
-"""Models (the reference's ``repro.models``): the two-tower retrieval model
-with the MLP it shares with the GNNs, and the decoder-only transformer LM
-(prefill, decode, and the training forward and loss)."""
+"""Models (the reference's ``repro.models``): the two-tower retrieval model,
+the decoder-only transformer LM (prefill, decode, and the training forward
+and loss), and the GNN family (``gnn``: MeshGraphNet, PNA, SchNet,
+GraphCast) with the MLP the towers share."""

@@ -1,2 +1,7 @@
-"""GNN machinery (the reference's ``repro.models.gnn``); so far only the
-MLP of ``common``, which the two-tower towers use."""
+"""GNN models (the reference's ``repro.models.gnn``): MeshGraphNet, PNA,
+SchNet and GraphCast, and their shared MLP and message passing."""
+from . import common, graphcast, meshgraphnet, pna, schnet
+from .meshgraphnet import MGNConfig
+from .graphcast import GraphCastConfig, multimesh_edges
+from .pna import PNAConfig
+from .schnet import SchNetConfig

@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_gnn import CARD_CASES, card_equals_cpu  # noqa: E402
 from repro_torch import algorithms as alg  # noqa: E402
 from repro_torch import core  # noqa: E402
 from repro_torch.graph import rmat_graph  # noqa: E402
@@ -1012,3 +1013,38 @@ def test_block_to_device_defaults_to_card(cuda):
     assert all(t.device.type == "cuda" for t in got.values())
     want = block_to_device(block, device="cpu")
     assert all(torch.equal(got[k].cpu(), want[k]) for k in want)
+
+
+# ---------------- the GNN family (models/gnn) ----------------
+
+@pytest.mark.parametrize("how", ["sum", "mean", "max", "min"])
+def test_gnn_aggregate_on_card_equals_cpu(cuda, how):
+    """``aggregate`` on the card: the CPU's values, ids outside ``[0, n)``
+    (-1, n, n + 5) dropped, empty rows 0, and its gradient."""
+    from repro_torch.models.gnn.common import aggregate
+
+    rng = np.random.default_rng(3)
+    msg = torch.from_numpy(rng.normal(size=(5000, 24)).astype(np.float32))
+    ids = rng.integers(0, 700, 5000).astype(np.int32)
+    ids[:30] = [-1, 700, 705] * 10
+    ids[ids == 7] = 8  # row 7 receives nothing
+    ids = torch.from_numpy(ids)
+    cot = torch.from_numpy(rng.normal(size=(700, 24)).astype(np.float32))
+    got_in = msg.to(cuda).requires_grad_()
+    got = aggregate(got_in, ids.to(cuda), 700, how)
+    got.backward(cot.to(cuda))
+    want_in = msg.clone().requires_grad_()
+    want = aggregate(want_in, ids, 700, how)
+    want.backward(cot)
+    torch.testing.assert_close(got.detach().cpu(), want.detach(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_in.grad.cpu(), want_in.grad, rtol=1e-5, atol=1e-6)
+    assert not got[7].any() and not got_in.grad[:30].any()
+
+
+@pytest.mark.parametrize("arch,blocked", CARD_CASES, ids=[f"{a}{'-blocked' if b else ''}" for a, b in CARD_CASES])
+def test_gnn_smoke_config_on_card_equals_cpu(cuda, arch, blocked):
+    """Each GNN smoke config's forward and one AdamW ``gnn_train_step`` on
+    the card against the CPU on the same weights and batch (GraphCast also
+    on its owner-blocked layout, P = 4): ``_torch_gnn.card_equals_cpu``,
+    the case ``chip_smoke.py``'s phase 13 also runs."""
+    card_equals_cpu(arch, blocked, cuda, np.random.default_rng(6), seed=3)

@@ -36,6 +36,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     walked = out.stdout.split()
     assert len(walked) >= 20  # every module was walked
     assert "repro_torch.ft.fault_tolerance" in walked
+    assert "repro_torch.models.gnn.graphcast" in walked and "repro_torch.configs.schnet" in walked
 
 
 def test_entry_points_refuse_cpu_without_explicit_device(monkeypatch):

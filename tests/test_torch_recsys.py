@@ -280,6 +280,6 @@ def test_registry_resolves_ported_and_refuses_the_rest():
     assert "two-tower-retrieval" in PORTED_ARCHS
     assert get_arch("two-tower-retrieval").ARCH_ID == "two-tower-retrieval"
     with pytest.raises(KeyError, match="not ported.*two-tower-retrieval"):
-        get_arch("schnet")
+        get_arch("paper-graph-engine")
     with pytest.raises(KeyError, match="not ported"):
         get_arch("no-such-arch")

@@ -288,9 +288,9 @@ def test_lm_shapes_equal_the_reference():
 
 def test_registry_holds_the_lm_archs():
     assert PORTED_ARCHS == ["granite-34b", "tinyllama-1.1b", "stablelm-1.6b", "two-tower-retrieval",
-                            "grok-1-314b", "arctic-480b"]
+                            "grok-1-314b", "arctic-480b", "meshgraphnet", "graphcast", "pna", "schnet"]
     for arch in LM_ARCHS + ["grok-1-314b", "arctic-480b"]:
         assert get_arch(arch).ARCH_ID == arch
     assert get_arch("arctic-480b").make_config().moe.dense_residual
     with pytest.raises(KeyError, match="not ported"):
-        get_arch("schnet")
+        get_arch("paper-graph-engine")
