@@ -11,7 +11,8 @@ tables), TinyLlama-1.1B serving at full width and depth, MoE serving
 (grok-1, arctic) at full width with depth cut, and TinyLlama-1.1B training
 at full width and depth, then the LM smoke configs (head dim 16) on the
 card, then the GNN family (MeshGraphNet, PNA, SchNet, GraphCast) trained at
-the published widths. For a quick check at small
+the published widths, then the two-tower model trained at the full width of
+``make_config()``. For a quick check at small
 sizes run ``tests/test_torch_cuda.py``. Phases, each raising on failure:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
@@ -145,7 +146,23 @@ sizes run ``tests/test_torch_cuda.py``. Phases, each raising on failure:
     owner-blocked at P = 512 (its loss equal to the flat forward's on the
     same edges, then 3 steps). None of the five kernels runs here: their
     counts stay 0;
-14. isolation — neither JAX nor the JAX package was imported.
+14. two-tower training — (a) ``EmbeddingBagFunction`` (the kernel's
+    forward, the plain backward) against autograd through the plain
+    version on the card, forward and both gradients, at ``user_history``'s
+    shape (16,384 bags of 32 Zipf ids), ``item_tags``' (2^20 bags of 8) and
+    on ``jnp.take``'s out-of-range ids (-1, -V, V, V + 5: NaN bags), one
+    launch a forward, the backward's device ms; (b) three
+    ``recsys_train_step``s of the smoke config on the card equal to the
+    CPU; (d) ``recsys_serve_step`` at ``make_config()``'s full width
+    (18.54 GB of tables, ``TwoTower(seed=3)``) at serve_p99 (512) and
+    serve_bulk (262,144) against its plain version, ms a call; (c) 5 AdamW
+    steps (the config's ``OPTIMIZER``, lr 1e-3; clipping and AdamW in
+    place) at that width on ``InteractionStream`` batches, ``train_batch``
+    cut from 65,536 to 16,384: step 0's loss and gradient norm within 1e-5
+    of a control pass through the plain EmbeddingBag, the losses, step ms,
+    examples/s, peak memory, 6 EmbeddingBag launches a step and a profiled
+    step (device ms by kernel, each part's ms, idle share);
+15. isolation — neither JAX nor the JAX package was imported.
 
 The kernels' times go out as one JSON line. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -326,6 +343,31 @@ GNN_MOLECULE_ATOMS, GNN_BOND = 30, 1.5  # atoms a molecule (3,840 in 128), Å be
 # dst inside the owner's rows; its loss against the flat forward's on the
 # same edges (the same sums in another order), then GNN_BLOCKED_STEPS steps
 GNN_BLOCKS, GNN_BLOCKED_STEPS = 512, 3
+
+# two-tower training (launch/steps.py::recsys_train_step) at make_config()'s
+# full width: 18.54 GB of float32 tables, AdamW (the config's OPTIMIZER),
+# train_batch cut from 65,536 to 16,384 (the in-batch softmax's [B, B]
+# logits are 17.18 GB a copy at 65,536; tables, dense gradients and both
+# moments hold 74.16 GB). Batches: InteractionStream (user_id,
+# user_history: Zipf(1.2) ids mod 2^20, item_id, log_q) and the other
+# fields uniform in their vocabularies from default_rng(SEED)
+RECSYS_BATCH, RECSYS_STEPS = 16_384, 5
+RECSYS_USERS, RECSYS_ITEMS, RECSYS_HIST = 8_388_608, 1_048_576, 32
+RECSYS_TAGS = 8
+# (a) EmbeddingBagFunction (the kernel's forward, the plain backward)
+# against autograd through the plain version on the card, at user_history's
+# shape (16,384 bags of 32 Zipf ids), item_tags' (2^20 bags of 8) and bags
+# holding jnp.take's out-of-range ids (-1, -V, V, V + 5): forward within
+# EMB_RTOL/EMB_ATOL; the table's gradient sums a hot row's ~10^5 terms with
+# atomics in another order than the plain path's sorted sum, so within
+# RECSYS_GRAD_ATOL_REL of each gradient's largest entry
+RECSYS_GRAD_ATOL_REL = 1e-4
+# (c) step 0's loss and gradient norm against a control pass with the plain
+# EmbeddingBag on the card: float32 sums in another order
+RECSYS_CONTROL_RTOL = 1e-5
+# (d) recsys_serve_step at serve_p99 and serve_bulk against its plain
+# version on the card: dot products of unit vectors, summed in another order
+RECSYS_SERVE_TOL = 1e-5
 
 TIMED_BATCHES, TIMED_PER_BATCH = 5, 20
 # published H100 peaks (NVIDIA data sheets): HBM bytes/s by part, the
@@ -2727,6 +2769,299 @@ def gnn_path(dev: torch.device) -> dict:
     return record
 
 
+@contextlib.contextmanager
+def plain_embedding_bag():
+    """The EmbeddingBag's plain version in place of the kernel on the card
+    for the block (the forward of ``ops.embedding_bag`` and of
+    ``EmbeddingBagFunction``; the backward is plain either way): phase 14's
+    control and serve comparison."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_plain, ops
+
+    forward = ops._forward
+    ops._forward = embedding_bag_plain
+    try:
+        yield
+    finally:
+        ops._forward = forward
+
+
+def recsys_features(cfg, b: int, rng: np.random.Generator, dev, step: int = 0) -> dict:
+    """A two-tower batch of ``b`` on the card: InteractionStream's user_id,
+    user_history, item_id and log_q at step ``step`` (seed SEED), the other
+    fields uniform in their vocabularies from ``rng``."""
+    from repro_torch.data import InteractionStream
+
+    stream = InteractionStream(n_users=RECSYS_USERS, n_items=RECSYS_ITEMS, batch=b, hist_len=RECSYS_HIST,
+                               seed=SEED, step=step)
+    raw = next(stream)
+    vocab = {f.name: f.vocab for f in (*cfg.user_fields, *cfg.item_fields)}
+    raw["user"]["user_geo"] = rng.integers(0, vocab["user_geo"], (b, 1)).astype(np.int32)
+    raw["item"]["item_category"] = rng.integers(0, vocab["item_category"], (b, 1)).astype(np.int32)
+    raw["item"]["item_tags"] = rng.integers(0, vocab["item_tags"], (b, RECSYS_TAGS)).astype(np.int32)
+    for f in (*cfg.user_fields, *cfg.item_fields):
+        side = raw["user"] if f in cfg.user_fields else raw["item"]
+        if side[f.name].shape != (b, f.multi_hot):
+            raise AssertionError(f"{f.name}: the batch holds {side[f.name].shape}, the config {(b, f.multi_hot)}")
+    return {"user": {k: torch.from_numpy(v).to(dev) for k, v in raw["user"].items()},
+            "item": {k: torch.from_numpy(v).to(dev) for k, v in raw["item"].items()},
+            "log_q": torch.from_numpy(raw["log_q"]).to(dev)}
+
+
+def hold_bag_function(dev, name: str, v: int, bags: int, ids: torch.Tensor) -> dict:
+    """14(a): EmbeddingBagFunction on the card (weights requiring grad)
+    against autograd through the plain version, forward and both gradients,
+    one kernel launch a forward; the backward's device ms and launches
+    (profiler) and the forward + backward's CUDA-event ms beside the plain
+    path's."""
+    from repro_torch.kernels.embedding_bag import EmbeddingBagFunction, embedding_bag_cuda, embedding_bag_plain
+
+    d = 256
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    table = (torch.randn(v, d, device=dev, generator=gen) * 0.01).requires_grad_()
+    hot = ids.numel() // bags
+    segs = torch.arange(bags, dtype=torch.int32, device=dev).repeat_interleave(hot)
+    w = torch.rand(ids.numel(), device=dev, generator=gen).requires_grad_()
+    cot = torch.randn(bags, d, device=dev, generator=gen)
+
+    def run(fn):
+        table.grad = w.grad = None
+        out = fn(table, ids, segs, w, bags)
+        out.backward(cot)
+        return out.detach(), table.grad, w.grad
+
+    def kernel(*a):
+        return EmbeddingBagFunction.apply(*a)
+
+    before = embedding_bag_cuda.launches
+    got = run(kernel)
+    torch.cuda.synchronize()
+    if embedding_bag_cuda.launches != before + 1:
+        raise AssertionError(f"{name}: a Function forward launched {embedding_bag_cuda.launches - before} kernels")
+    want = run(embedding_bag_plain)
+    if embedding_bag_cuda.launches != before + 1:
+        raise AssertionError(f"{name}: the plain path launched the kernel")
+    errs = []
+    for part, a, b in zip(("forward", "table_grad", "weights_grad"), got, want):
+        finite = ~b.isnan()
+        atol = EMB_ATOL if part == "forward" else RECSYS_GRAD_ATOL_REL * float(b[finite].abs().max())
+        torch.testing.assert_close(a, b, rtol=EMB_RTOL, atol=atol, equal_nan=True, msg=lambda m: f"{name} {part}: {m}")
+        errs.append(float((a - b)[finite].abs().max()))
+    nan_bags = int(got[0].isnan().any(-1).sum())
+    del got, want
+    out = kernel(table, ids, segs, w, bags)
+
+    def backward():
+        table.grad = w.grad = None
+        out.backward(cot, retain_graph=True)
+
+    bwd_ms, bwd_launches = device_ms_per_call(backward, calls=3)
+    record = {"case": name, "bags": bags, "ids_per_bag": hot, "rows": v,
+              "distinct_rows": int(torch.unique(ids).numel()), "nan_bags": nan_bags,
+              "max_abs_err": dict(zip(("forward", "table_grad", "weights_grad"), errs)),
+              "backward_device_ms": bwd_ms, "backward_launches": bwd_launches,
+              "kernel_fwd_bwd_ms": time_ms(lambda: run(kernel), warmup=1, batches=3, per_batch=2),
+              "plain_fwd_bwd_ms": time_ms(lambda: run(embedding_bag_plain), warmup=1, batches=3, per_batch=2)}
+    del out
+    log(json.dumps({"recsys_bag_function": record}))
+    return record
+
+
+def recsys_profiled_step(model, cfg, opt, opt_state, batch) -> dict:
+    """One step of ``recsys_train_step``'s body (the same public calls in
+    the same order), CUDA events between its parts, under the profiler:
+    device ms by kernel name, each part's event ms, busy and idle."""
+    from repro_torch.models import recsys as tt
+    from repro_torch.optim import adamw_update_, clip_by_global_norm_
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    state = {}
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = tt.loss_fn(cfg, model, batch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        grads = tt.params_tree(model, grads=True)
+        clip_by_global_norm_(grads, opt.clip_norm)
+        ev[3].record()
+        state["opt"] = adamw_update_(opt, grads, opt_state, tt.params_tree(model))
+        ev[4].record()
+        del grads
+        model.zero_grad(set_to_none=True)
+
+    by_name, wall = device_time_from_trace(step, tries=3)
+    busy = sum(by_name.values())
+    parts = dict(zip(("forward", "backward", "clip", "adamw"), (ev[i].elapsed_time(ev[i + 1]) for i in range(4))))
+
+    def share(*keys):
+        return sum(x for k, x in by_name.items() if any(key in k for key in keys))
+
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / (wall * 1e3),
+            "part_event_ms": parts,
+            "kernel_groups_ms": {"embedding_bag_kernel (forward)": share("embedding_bag_kernel"),
+                                 "index_add (backward)": share("index_add", "indexFunc"),
+                                 "fill (zero-fills: the dense gradients)": share("FillFunctor"),
+                                 "norm (squares and sums)": share("pow_tensor_scalar", "reduce_kernel"),
+                                 "gemm": share("gemm", "sgemm", "Kernel2", "cutlass")},
+            "kernels": len(by_name), "top_kernels_ms": {short_kernel_name(k, 70): x for k, x in top},
+            "opt_step": int(state["opt"]["step"])}
+
+
+def recsys_train_path(dev: torch.device) -> dict:
+    """Phase 14: two-tower training. (a) EmbeddingBagFunction on the card
+    against autograd through the plain version at user_history's and
+    item_tags' shapes and on jnp.take's out-of-range ids; (b) the smoke
+    config's recsys_train_step on the card against the CPU; (d)
+    recsys_serve_step at make_config()'s full width at serve_p99 and
+    serve_bulk against its plain version; (c) RECSYS_STEPS AdamW steps at
+    full width, batch RECSYS_BATCH: step 0 against a control pass with the
+    plain EmbeddingBag, the losses, step ms, examples/s, peak, launches a
+    step and a profiled step."""
+    from _torch_recsys import card_equals_cpu
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention import flash_attention_cuda
+    from repro_torch.kernels.degree_count import degree_count_cuda
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.kernels.scoring import scoring_cuda
+    from repro_torch.kernels.spmv import spmv_rows_cuda
+    from repro_torch.launch.steps import RECSYS_SHAPES, recsys_serve_step, recsys_train_step
+    from repro_torch.models import recsys as tt
+    from repro_torch.optim import adamw_init, clip_by_global_norm_
+
+    t_phase = time.perf_counter()
+    arch = get_arch("two-tower-retrieval")
+    cfg, opt = arch.make_config(), arch.OPTIMIZER
+    vocab = {f.name: f.vocab for f in (*cfg.user_fields, *cfg.item_fields)}
+
+    # (a) the Function against plain autograd ------------------------------
+    rng = np.random.default_rng(SEED)
+    v_hist, v_tags = vocab["user_history"], vocab["item_tags"]
+    hist = torch.from_numpy((rng.zipf(1.2, RECSYS_BATCH * RECSYS_HIST) % RECSYS_ITEMS).astype(np.int32)).to(dev)
+    tags = torch.from_numpy(rng.integers(0, v_tags, N_ITEMS * RECSYS_TAGS).astype(np.int32)).to(dev)
+    rule = rng.integers(0, v_tags, 4096 * RECSYS_TAGS)
+    rule[::3], rule[1::5], rule[2::97], rule[3::101] = -1, -v_tags, v_tags, v_tags + 5  # ~1 bag in 6 NaN
+    rule = torch.from_numpy(rule.astype(np.int32)).to(dev)
+    functions = [hold_bag_function(dev, "user_history", v_hist, RECSYS_BATCH, hist),
+                 hold_bag_function(dev, "item_tags", v_tags, N_ITEMS, tags),
+                 hold_bag_function(dev, "id_rule", v_tags, 4096, rule)]
+    if [f["nan_bags"] > 0 for f in functions] != [False, False, True]:
+        raise AssertionError(f"NaN bags {[f['nan_bags'] for f in functions]}: want them from the out-of-range ids only")
+    del hist, tags, rule
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t_phase
+
+    # (b) the smoke config on the card against the CPU ---------------------
+    smoke = card_equals_cpu(dev, np.random.default_rng(SEED), steps=3)
+    log(json.dumps({"recsys_smoke_on_card": smoke}))
+    t_b = time.perf_counter() - t_phase - t_a
+
+    # the model at full width, the batches --------------------------------
+    t0 = time.perf_counter()
+    model = tt.TwoTower(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    table_bytes = sum(p.numel() * p.element_size() for p in (*model.user_tables.values(),
+                                                              *model.item_tables.values()))
+    built_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    batches = [recsys_features(cfg, RECSYS_BATCH, rng, dev, step=i) for i in range(RECSYS_STEPS + 1)]
+    hot = batches[0]["user"]["user_history"].reshape(-1)
+    hot_share = float(torch.bincount(hot.long()).max()) / hot.numel()
+
+    # (d) the serve step at full width, before the optimizer state ---------
+    serve = recsys_serve_step(cfg)
+    serve_rows = []
+    for shape in ("serve_p99", "serve_bulk"):
+        b = RECSYS_SHAPES[shape]["batch"]
+        feats = recsys_features(cfg, b, np.random.default_rng(SEED + 1), dev, step=100)
+        embedding_bag_cuda.launches = 0
+        got = serve(model, feats["user"], feats["item"])
+        torch.cuda.synchronize()
+        launches = embedding_bag_cuda.launches
+        with plain_embedding_bag():
+            want = serve(model, feats["user"], feats["item"])
+            if embedding_bag_cuda.launches != launches:
+                raise AssertionError("the plain serve step launched the kernel")
+            plain_ms = time_ms(lambda: serve(model, feats["user"], feats["item"]), warmup=1, batches=3, per_batch=2)
+        if launches != len(cfg.user_fields) + len(cfg.item_fields) or got.shape != (b,):
+            raise AssertionError(f"{shape}: {launches} launches, output {tuple(got.shape)}")
+        torch.testing.assert_close(got, want, rtol=RECSYS_SERVE_TOL, atol=RECSYS_SERVE_TOL)
+        serve_rows.append({"shape": shape, "batch": b, "launches": launches,
+                           "max_abs_err": float((got - want).abs().max()),
+                           "ms": time_ms(lambda: serve(model, feats["user"], feats["item"]), warmup=1, batches=3,
+                                         per_batch=4 if b < 10_000 else 2),
+                           "plain_ms": plain_ms})
+        log(json.dumps({"recsys_serve_step": serve_rows[-1]}))
+        del feats, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) step 0's control with the plain EmbeddingBag, then the main path --
+    with plain_embedding_bag():
+        model.zero_grad(set_to_none=True)
+        loss = tt.loss_fn(cfg, model, batches[0])
+        loss.backward()
+        control_loss = float(loss.detach())
+        control_gnorm = float(clip_by_global_norm_(tt.params_tree(model, grads=True), opt.clip_norm))
+        del loss
+        model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt_state = adamw_init(tt.params_tree(model))
+    step = recsys_train_step(cfg, opt)
+    wrappers = {"spmv": spmv_rows_cuda, "degree_count": degree_count_cuda, "scoring": scoring_cuda,
+                "embedding_bag": embedding_bag_cuda, "flash_attention": flash_attention_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    losses, gnorms, secs = [], [], []
+    for i in range(RECSYS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt_state, m = step(model, opt_state, batches[i])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    fields = len(cfg.user_fields) + len(cfg.item_fields)
+    if launches["embedding_bag"] != fields * RECSYS_STEPS or any(n for k, n in launches.items()
+                                                               if k != "embedding_bag"):
+        raise AssertionError(f"the training steps launched {launches}: want {fields} EmbeddingBag kernels a step")
+    if not np.isfinite(losses).all() or not np.isfinite(gnorms).all():
+        raise AssertionError(f"losses {losses}, gradient norms {gnorms}: not finite")
+    for what, got, want in (("loss", losses[0], control_loss), ("gnorm", gnorms[0], control_gnorm)):
+        if not abs(got - want) <= RECSYS_CONTROL_RTOL * abs(want):
+            raise AssertionError(f"step 0's {what} {got} is not within {RECSYS_CONTROL_RTOL} of the plain control's {want}")
+    if int(opt_state["step"]) != RECSYS_STEPS:
+        raise AssertionError(f"the optimizer counted {int(opt_state['step'])} steps")
+    profile = recsys_profiled_step(model, cfg, opt, opt_state, batches[RECSYS_STEPS])
+    med = float(np.median(secs[1:]))
+    record = {
+        "config": "make_config()", "table_bytes": table_bytes, "model_built_s": built_s,
+        "batch": RECSYS_BATCH, "steps": RECSYS_STEPS, "losses": losses, "gnorms": gnorms,
+        "control_loss": control_loss, "control_gnorm": control_gnorm,
+        "step0_rel_diff": {"loss": abs(losses[0] - control_loss) / abs(control_loss),
+                           "gnorm": abs(gnorms[0] - control_gnorm) / abs(control_gnorm)},
+        "step_ms_all": [x * 1e3 for x in secs], "step_ms_median": med * 1e3,
+        "examples_per_s": RECSYS_BATCH / med, "peak_gb": peak / 1e9,
+        "history_hot_row_share": hot_share, "launches": launches,
+        "embedding_bag_launches_per_step": launches["embedding_bag"] / RECSYS_STEPS,
+        "profiled_step": profile,
+    }
+    log(json.dumps({"recsys_train_full_width": record}))
+    del model, opt_state, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"functions": functions, "smoke": smoke, "serve": serve_rows, "full_width": record,
+            "launches_main_path": launches["embedding_bag"],
+            "checks_a_s": t_a, "checks_b_s": t_b, "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2735,7 +3070,7 @@ def main() -> int:
         print(f"chip_smoke: needs one CUDA device, sees {torch.cuda.device_count()}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    sys.path.append(str(ROOT / "tests"))  # _torch_gnn: phase 13's smoke batches and card case
+    sys.path.append(str(ROOT / "tests"))  # _torch_gnn, _torch_recsys: phases 13's and 14's card cases
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -2840,7 +3175,20 @@ def main() -> int:
     for k in kernels:
         k.setdefault("launches_by_phase", {})["gnn"] = gnn["kernel_launches"][k["name"]]
 
-    # 14. isolation -------------------------------------------------------------
+    # 14. two-tower training at full width --------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recsys = recsys_train_path(dev)
+    log(f"recsys training phase: {time.perf_counter() - t0:.1f} s")
+    bag = next(k for k in kernels if k["name"] == "embedding_bag")
+    bag["launches_by_phase"]["recsys_train"] = recsys["launches_main_path"]
+    bag["launches_by_phase"]["recsys_serve"] = {r["shape"]: r["launches"] for r in recsys["serve"]}
+    bag["max_abs_err"] = max(bag["max_abs_err"], *(f["max_abs_err"]["forward"] for f in recsys["functions"]))
+    bag["training"] = {"functions": recsys["functions"], "serve": recsys["serve"],
+                       "profiled_step": recsys["full_width"]["profiled_step"]}
+
+    # 15. isolation -------------------------------------------------------------
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     if leaked:
         raise AssertionError(f"imported the JAX side: {leaked}")

@@ -1,14 +1,19 @@
 """two-tower-retrieval [RecSys'19 (YouTube)]: embed_dim=256,
-tower MLPs 1024-512-256, dot interaction.
+tower MLPs 1024-512-256, dot interaction, sampled softmax.
 
 Vocab sizes are powers of two (the paper gives none), the reference's
-numbers. ``make_cell`` waits with the cell programs of ``launch.steps``."""
+numbers. The model trains with ``launch.steps.recsys_train_step`` under
+:data:`OPTIMIZER` (the optimizer of the reference's ``make_cell``) and
+serves with ``recsys_serve_step``; ``make_cell`` itself waits with the
+cell programs of ``launch.steps``."""
 from ..launch.steps import RECSYS_SHAPES
 from ..models.recsys import FieldSpec, TwoTowerConfig
+from ..optim import OptimizerConfig
 
 ARCH_ID = "two-tower-retrieval"
 FAMILY = "recsys"
 SHAPES = list(RECSYS_SHAPES)
+OPTIMIZER = OptimizerConfig(name="adamw", lr=1e-3)
 
 
 def make_config() -> TwoTowerConfig:

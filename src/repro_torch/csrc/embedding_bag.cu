@@ -7,7 +7,11 @@
 // sequential grid in the revisited output block. This kernel computes the
 // same out[b] = sum over i with segments[i] == b of weights[i] * table[ids[i]],
 // with empty bags as zeros; ids whose segment lies outside [0, num_bags)
-// fall in no bag.
+// fall in no bag. Ids follow jnp.take's rule, the reference's gather: an id
+// in [-V, 0) reads row id + V, and any other id outside [0, V) reads a row
+// of NaN, so its bag comes out NaN (whatever its weight), as the
+// reference's NaN fill does. Each thread checks each id it loads: one
+// compare and select, no host sync.
 //
 // What bounds it on the H100: bytes, and the latency of reaching them. Each
 // id reads one D-float row at a random place in the table (a whole 1 KiB
@@ -52,6 +56,12 @@ constexpr int kUnroll = 4;  // row loads in flight per thread (A/B: 2, 4, 8, 16,
 
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float4 load(const float4* p) { return __ldg(p); }
+
+__device__ __forceinline__ float nan_of(float) { return __int_as_float(0x7fc00000); }
+__device__ __forceinline__ float4 nan_of(float4) {
+  const float q = __int_as_float(0x7fc00000);
+  return make_float4(q, q, q, q);
+}
 
 __device__ __forceinline__ void add_scaled(float& acc, float w, float v) {
   acc = __fadd_rn(acc, __fmul_rn(w, v));
@@ -141,7 +151,7 @@ __device__ __forceinline__ void lower_bounds(const int32_t* __restrict__ segs, i
 // takes one bag and strides over its row_vecs columns.
 template <typename Vec>
 __global__ void __launch_bounds__(kThreads) embedding_bag_kernel(
-    const Vec* __restrict__ table, int row_vecs, const int32_t* __restrict__ ids,
+    const Vec* __restrict__ table, int rows, int row_vecs, const int32_t* __restrict__ ids,
     const int32_t* __restrict__ segs, const float* __restrict__ weights, int n,
     Vec* __restrict__ out, int num_bags, int group) {
   const int bags_per_block = kThreads / group;
@@ -164,7 +174,11 @@ __global__ void __launch_bounds__(kThreads) embedding_bag_kernel(
 #pragma unroll (kUnroll)
     for (int i = 0; i < count; ++i) {
       const float w = bag_w != nullptr ? __ldg(bag_w + i) : 1.f;
-      add_scaled(acc, w, load(column + static_cast<int64_t>(__ldg(bag_ids + i)) * row_vecs));
+      int id = __ldg(bag_ids + i);
+      id = id < 0 ? id + rows : id;  // jnp.take wraps [-V, 0)
+      const bool inside = static_cast<unsigned>(id) < static_cast<unsigned>(rows);
+      const Vec v = load(column + static_cast<int64_t>(inside ? id : 0) * row_vecs);
+      add_scaled(acc, w, inside ? v : nan_of(v));
     }
     dst[col] = acc;
   }
@@ -174,15 +188,18 @@ __global__ void __launch_bounds__(kThreads) embedding_bag_kernel(
 
 // out[num_bags, D] (float32) = per-bag weighted sums of table[V, D] rows.
 // ids and segments are int32 [n], segments sorted non-decreasing (ids whose
-// segment is negative or past num_bags fall in no bag), ids in [0, V);
-// weights is float32 [n] or null for all ones; n and num_bags below
-// INT32_MAX (else cudaErrorInvalidValue). Launches one kernel on `stream`;
-// returns cudaGetLastError().
-extern "C" int embedding_bag(const void* table, int64_t D, const void* ids, const void* segments,
-                             const void* weights, int64_t n, void* out, int64_t num_bags,
-                             void* stream) {
-  if (n > INT32_MAX || num_bags >= INT32_MAX || D > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+// segment is negative or past num_bags fall in no bag); an id in [-V, 0)
+// reads row id + V, any other id outside [0, V) a row of NaN (jnp.take's
+// rule); weights is float32 [n] or null for all ones; V, n and num_bags
+// below INT32_MAX (else cudaErrorInvalidValue). Launches one kernel on
+// `stream`; returns cudaGetLastError().
+extern "C" int embedding_bag(const void* table, int64_t V, int64_t D, const void* ids,
+                             const void* segments, const void* weights, int64_t n, void* out,
+                             int64_t num_bags, void* stream) {
+  if (V >= INT32_MAX || n > INT32_MAX || num_bags >= INT32_MAX || D > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (num_bags <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
+  if (V <= 0 && n > 0) return static_cast<int>(cudaErrorInvalidValue);  // no row to read for an id
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
@@ -206,11 +223,11 @@ extern "C" int embedding_bag(const void* table, int64_t D, const void* ids, cons
   const float* w = static_cast<const float*>(weights);
   if (vec4) {
     embedding_bag_kernel<float4><<<blocks, kThreads, 0, st>>>(
-        static_cast<const float4*>(table), static_cast<int>(row_vecs), id, seg, w,
+        static_cast<const float4*>(table), static_cast<int>(V), static_cast<int>(row_vecs), id, seg, w,
         static_cast<int>(n), static_cast<float4*>(out), static_cast<int>(num_bags), group);
   } else {
     embedding_bag_kernel<float><<<blocks, kThreads, 0, st>>>(
-        static_cast<const float*>(table), static_cast<int>(row_vecs), id, seg, w,
+        static_cast<const float*>(table), static_cast<int>(V), static_cast<int>(row_vecs), id, seg, w,
         static_cast<int>(n), static_cast<float*>(out), static_cast<int>(num_bags), group);
   }
   return static_cast<int>(cudaGetLastError());

@@ -7,7 +7,10 @@ Both functions return the float32 ``[num_bags, D]`` per-bag sums
 ``segments`` are int32, ``segments`` sorted non-decreasing (the kernel
 finds each bag's ids from it), ``weights`` float32 or ``None`` for all
 ones. An id whose segment lies outside ``[0, num_bags)`` falls in no bag,
-as ``jax.ops.segment_sum`` drops it. The source and its design note are
+as ``jax.ops.segment_sum`` drops it. Ids follow ``jnp.take``'s rule, the
+reference's gather (:func:`take_rows`): an id in ``[-V, 0)`` reads row
+``id + V``, and any other id outside ``[0, V)`` reads a row of NaN, so its
+bag comes out NaN whatever its weight. The source and its design note are
 ``csrc/embedding_bag.cu``.
 """
 from __future__ import annotations
@@ -27,6 +30,25 @@ def bag_index(segments: torch.Tensor, num_bags: int) -> torch.Tensor:
     return torch.where((seg >= 0) & (seg < num_bags), seg, num_bags)
 
 
+def wrap_ids(ids: torch.Tensor, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jnp.take``'s index rule on ``rows`` rows: the int64 row each id
+    reads (``id + rows`` for an id in ``[-rows, 0)``; 0 for an id outside
+    ``[-rows, rows)``) and whether it reads one (False where the reference
+    fills NaN and drops the gradient). Tensor ops only: no host sync."""
+    ids = ids.to(torch.int64)
+    wrapped = torch.where(ids < 0, ids + rows, ids)
+    inside = (wrapped >= 0) & (wrapped < rows)
+    return torch.where(inside, wrapped, 0), inside
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)``: ``table[ids]`` with negative ids
+    wrapped and rows of NaN for ids past either end. Differentiable in
+    ``table``: the NaN-filled rows send it no gradient."""
+    row, inside = wrap_ids(ids, table.shape[0])
+    return table[row].masked_fill_(~inside.reshape(*inside.shape, 1), torch.nan)
+
+
 def embedding_bag_plain(
     table: torch.Tensor,
     ids: torch.Tensor,
@@ -34,8 +56,9 @@ def embedding_bag_plain(
     weights: torch.Tensor | None,
     num_bags: int,
 ) -> torch.Tensor:
-    """Plain PyTorch version: gather, scale, ``index_add_`` per bag."""
-    rows = table[ids.to(torch.int64)]
+    """Plain PyTorch version: gather (:func:`take_rows`), scale,
+    ``index_add_`` per bag. Differentiable by autograd."""
+    rows = take_rows(table, ids)
     if weights is not None:
         rows = rows * weights[:, None]
     out = torch.zeros(num_bags + 1, table.shape[1], dtype=table.dtype, device=table.device)
@@ -47,7 +70,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.embedding_bag
     if fn.argtypes is None:  # first load: declare the C signature
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [p, i64, p, p, p, i64, p, i64, p]
+        fn.argtypes = [p, i64, i64, p, p, p, i64, p, i64, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -60,9 +83,9 @@ def embedding_bag_cuda(
     num_bags: int,
 ) -> torch.Tensor:
     """Launch the CUDA kernel (one launch, no scratch) on the current
-    stream. ``segments`` must be sorted and ``ids`` lie in ``[0, V)``: both
-    are the caller's to ensure (checking them would cost a sync with the
-    host)."""
+    stream. ``segments`` must be sorted: the caller's to ensure (checking
+    would cost a sync with the host). Ids outside ``[0, V)`` take
+    ``jnp.take``'s rule, checked by the kernel as it loads each id."""
     dev = table.device
     named = [("table", table, torch.float32, 2), ("ids", ids, torch.int32, 1),
              ("segments", segments, torch.int32, 1)]
@@ -78,13 +101,15 @@ def embedding_bag_cuda(
     n = ids.shape[0]
     if segments.shape[0] != n or (weights is not None and weights.shape[0] != n):
         raise ValueError("embedding_bag_cuda: ids, segments and weights differ in length")
-    if n > 2**31 - 1 or num_bags >= 2**31 - 1:
-        raise ValueError("embedding_bag_cuda: the kernel indexes ids and bags in 32 bits")
+    if n > 2**31 - 1 or num_bags >= 2**31 - 1 or table.shape[0] >= 2**31 - 1:
+        raise ValueError("embedding_bag_cuda: the kernel indexes rows, ids and bags in 32 bits")
+    if table.shape[0] == 0 and n > 0:
+        raise ValueError("embedding_bag_cuda: the table has no rows for the ids to read")
     out = torch.empty(num_bags, table.shape[1], dtype=torch.float32, device=dev)
     if num_bags <= 0:
         return out
     status = _lib().embedding_bag(
-        table.data_ptr(), table.shape[1], ids.data_ptr(), segments.data_ptr(),
+        table.data_ptr(), table.shape[0], table.shape[1], ids.data_ptr(), segments.data_ptr(),
         None if weights is None else weights.data_ptr(), n, out.data_ptr(), num_bags,
         torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -1,15 +1,18 @@
-"""Cell shapes and the LM and GNN training steps. The retrieval server and
-the configs read the shapes from here. The reference's ``CellProgram``,
-``make_lm_cell``, ``make_gnn_cell`` (with ``gnn_abstract_batch``) and the
-recsys cell programs wait for the dry-run slice."""
+"""Cell shapes, the LM, GNN and two-tower training steps and the two-tower
+serve step. The retrieval server and the configs read the shapes from
+here. The reference's ``CellProgram``, ``make_lm_cell``, ``make_gnn_cell``
+(with ``gnn_abstract_batch``) and ``make_recsys_cell`` wait for the
+dry-run slice: :func:`recsys_train_step` and :func:`recsys_serve_step` are
+the bodies of ``make_recsys_cell``'s ``train`` and ``serve`` programs."""
 from __future__ import annotations
 
 import torch
 
+from ..models import recsys as tt
 from ..models import transformer as tf
 from .._tree import tree_map
 from ..models.gnn.common import params_tree as gnn_params_tree
-from ..optim import OptimizerConfig, clip_by_global_norm, make_optimizer
+from ..optim import OptimizerConfig, clip_by_global_norm, clip_by_global_norm_, make_optimizer
 
 
 def pad_to(n: int, multiple: int = 512) -> int:
@@ -96,5 +99,44 @@ def gnn_train_step(model_mod, cfg, opt_cfg: OptimizerConfig, *, n_graphs: int, b
         params, opt_state = update(opt_cfg, grads, opt_state, gnn_params_tree(model))
         model.load_state_dict(model_mod.params_from_jax(cfg, params))
         return model, opt_state, {"loss": loss.detach(), "gnorm": gnorm}
+
+    return step
+
+
+def recsys_train_step(cfg: tt.TwoTowerConfig, opt_cfg: OptimizerConfig):
+    """``step(model, opt_state, batch) -> (model, opt_state, metrics)``: the
+    reference's two-tower ``train`` program (``make_recsys_cell``) for a
+    ``TwoTower``. The value and gradient of ``loss_fn`` on ``batch``
+    (``{"user": {field: ids}, "item": {field: ids}, "log_q": [B]}``), then
+    global-norm clipping and AdamW over the reference's tree
+    (:func:`tt.params_tree`), both in place: the gradients are the dense
+    tensors the backward made (no second copy), and the update writes the
+    parameters and ``opt_state``'s moments themselves, as the 18.54 GB of
+    ``make_config()``'s tables leave no room for copies on one card.
+    ``opt_state`` comes back with the new step. ``metrics`` holds ``loss``
+    and ``gnorm`` as 0-d tensors."""
+    _, update = make_optimizer(opt_cfg, in_place=True)
+
+    def step(model: tt.TwoTower, opt_state, batch):
+        model.zero_grad(set_to_none=True)
+        loss = tt.loss_fn(cfg, model, batch)
+        loss.backward()
+        grads = tt.params_tree(model, grads=True)
+        gnorm = clip_by_global_norm_(grads, opt_cfg.clip_norm)
+        opt_state = update(opt_cfg, grads, opt_state, tt.params_tree(model))
+        model.zero_grad(set_to_none=True)
+        return model, opt_state, {"loss": loss.detach(), "gnorm": gnorm}
+
+    return step
+
+
+def recsys_serve_step(cfg: tt.TwoTowerConfig):
+    """``step(model, user, item) -> [B]``: the reference's two-tower
+    ``serve`` program, each pair's dot product ``(u * v).sum(-1)`` of the
+    user and item towers' embeddings (no gradient), ``B`` the features'
+    batch."""
+    def step(model: tt.TwoTower, user: dict, item: dict) -> torch.Tensor:
+        b = next(iter(user.values())).shape[0]
+        return (model.user_embedding(user, b) * model.item_embedding(item, b)).sum(-1)
 
     return step

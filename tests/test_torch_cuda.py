@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_gnn import CARD_CASES, card_equals_cpu  # noqa: E402
+from _torch_recsys import card_equals_cpu as recsys_card_equals_cpu  # noqa: E402
 from repro_torch import algorithms as alg  # noqa: E402
 from repro_torch import core  # noqa: E402
 from repro_torch.graph import rmat_graph  # noqa: E402
@@ -24,7 +25,11 @@ from repro_torch.kernels.degree_count.degree_count import (  # noqa: E402
     _degree_count_variant,
     _lib as _degree_count_lib,
 )
-from repro_torch.kernels.embedding_bag import embedding_bag_cuda, embedding_bag_plain  # noqa: E402
+from repro_torch.kernels.embedding_bag import (  # noqa: E402
+    EmbeddingBagFunction,
+    embedding_bag_cuda,
+    embedding_bag_plain,
+)
 from repro_torch.kernels.scoring import scoring_cuda, scoring_plain  # noqa: E402
 from repro_torch.kernels.scoring.scoring import (  # noqa: E402
     STREAM_MAX_BATCH,
@@ -1048,3 +1053,107 @@ def test_gnn_smoke_config_on_card_equals_cpu(cuda, arch, blocked):
     on its owner-blocked layout, P = 4): ``_torch_gnn.card_equals_cpu``,
     the case ``chip_smoke.py``'s phase 13 also runs."""
     card_equals_cpu(arch, blocked, cuda, np.random.default_rng(6), seed=3)
+
+
+def _bag_grads(fn, table, ids, segs, w, cot):
+    """The forward and the table's and weights' gradients of ``fn(table,
+    ids, segs, w)`` for the cotangent ``cot``."""
+    t, tw = table.clone().requires_grad_(), w.clone().requires_grad_()
+    out = fn(t, ids, segs, tw)
+    out.backward(cot)
+    return out.detach(), t.grad, tw.grad
+
+
+@pytest.mark.parametrize("case", ["zipf_history", "tags", "id_rule"])
+def test_embedding_bag_function_on_card_matches_plain_autograd(cuda, case):
+    """``EmbeddingBagFunction`` (the kernel's forward, the plain backward)
+    against autograd through the plain version on the card: bags of 32 Zipf
+    ids (many repeats of a few rows, as the training stream's history), of
+    8 uniform ids, and bags holding ids -1, -V, V and V + 5 (NaN bags, the
+    wrapped ids' gradients on their rows). One launch a forward. The table's
+    gradient sums a hot row's terms with atomics in another order than the
+    plain path's: within 1e-4 of its largest entry."""
+    rng = np.random.default_rng(len(case))
+    v, d, bags, hot = {"zipf_history": (4096, 256, 512, 32), "tags": (2048, 256, 4096, 8),
+                       "id_rule": (300, 16, 64, 8)}[case]
+    ids = (rng.zipf(1.2, (bags, hot)) % v) if case == "zipf_history" else rng.integers(0, v, (bags, hot))
+    if case == "id_rule":
+        ids[::3, 0], ids[1::3, 1], ids[::5, 2], ids[::7, 3] = -1, -v, v, v + 5
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(ids.reshape(-1).astype(np.int32)).to(cuda)
+    segs = torch.arange(bags, dtype=torch.int32, device=cuda).repeat_interleave(hot)
+    w = torch.from_numpy(rng.random(bags * hot).astype(np.float32)).to(cuda)
+    cot = torch.from_numpy(rng.normal(size=(bags, d)).astype(np.float32)).to(cuda)
+    before = embedding_bag_cuda.launches
+    got = _bag_grads(lambda *a: EmbeddingBagFunction.apply(*a, bags), table, ids, segs, w, cot)
+    torch.cuda.synchronize()
+    assert embedding_bag_cuda.launches == before + 1
+    want = _bag_grads(lambda *a: embedding_bag_plain(*a, bags), table, ids, segs, w, cot)
+    assert embedding_bag_cuda.launches == before + 1
+    for a, b in zip(got, want):
+        scale = float(b[~b.isnan()].abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4 * scale, equal_nan=True)
+    if case == "id_rule":
+        assert got[0].isnan().any() and got[2].isnan().any() and not got[1].isnan().any()
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_id_rule_on_card_equals_cpu(cuda, mode):
+    """jnp.take's rule on the card as on the CPU: the same NaN bags, the
+    same forward and gradients, the kernel launched once in sum and mean."""
+    rng = np.random.default_rng(23)
+    v = 400
+    table = rng.normal(size=(v, 64)).astype(np.float32)
+    ids = rng.integers(0, v, 3000).astype(np.int32)
+    ids[::17], ids[5::23], ids[7::29], ids[11::31], ids[13::37] = -1, -v, v, v + 5, -v - 1
+    segs = rng.integers(-5, 130, 3000).astype(np.int32)
+    w = rng.normal(size=3000).astype(np.float32)
+    cot = rng.normal(size=(120, 64)).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        t = torch.from_numpy(table).to(dev).requires_grad_()
+        tw = torch.from_numpy(w).to(dev).requires_grad_()
+        before = embedding_bag_cuda.launches
+        out = layers.embedding_bag(t, torch.from_numpy(ids).to(dev), torch.from_numpy(segs).to(dev), 120,
+                                   mode=mode, weights=tw)
+        out.backward(torch.from_numpy(cot).to(dev))
+        assert embedding_bag_cuda.launches == before + (dev != "cpu" and mode != "max")
+        outs.append([x.detach().cpu() for x in (out, t.grad, tw.grad)])
+    assert outs[0][0].isnan().any() and not outs[0][0].isnan().all()
+    for a, b in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+def test_recsys_train_steps_on_card_equal_cpu(cuda):
+    """Three AdamW ``recsys_train_step``s of the two-tower smoke config on
+    the card against the CPU (tests/_torch_recsys.py's tolerances)."""
+    recsys_card_equals_cpu(cuda, np.random.default_rng(3))
+
+
+@pytest.mark.parametrize("chunk_rows", [2**16, 1000])
+def test_inplace_adamw_on_card_is_bit_equal_to_the_functional(cuda, chunk_rows):
+    """``clip_by_global_norm_`` and ``adamw_update_`` on the card against
+    the functional forms on the card, from the same gradients: the same
+    bits (a 70,000-row table splits into chunks at either size), the norm
+    within float32 rounding of its sum's order."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.optim import (
+        OptimizerConfig, adamw_init, adamw_update, adamw_update_, clip_by_global_norm, clip_by_global_norm_,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    params = {"table": torch.randn(70_000, 32, device=cuda, generator=g),
+              "w": torch.randn(24, 40, device=cuda, generator=g).T, "b": torch.randn(24, device=cuda, generator=g)}
+    ref_params = tree_map(lambda p: p.clone(), params)
+    cfg = OptimizerConfig(lr=1e-2, warmup_steps=1, decay_steps=10)
+    state, ref_state = adamw_init(params), adamw_init(ref_params)
+    for _ in range(3):
+        grads = tree_map(lambda p: torch.randn(p.shape, device=cuda, generator=g), params)
+        _, ref_norm = clip_by_global_norm(grads, 0.5)
+        norm = clip_by_global_norm_(grads, 0.5, chunk_rows=chunk_rows)
+        torch.testing.assert_close(norm, ref_norm, rtol=1e-6, atol=0)
+        ref_params, ref_state = adamw_update(cfg, tree_map(lambda x: x.clone(), grads), ref_state, ref_params)
+        state = adamw_update_(cfg, grads, state, params, chunk_rows=chunk_rows)
+        for tree, ref in ((params, ref_params), (state["mu"], ref_state["mu"]), (state["nu"], ref_state["nu"])):
+            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(tree), tree_leaves(ref)))
+    assert int(state["step"]) == 3

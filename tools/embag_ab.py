@@ -84,7 +84,8 @@ def build(paths: list[Path], base: Path) -> dict[str, tuple[ctypes.CDLL, bool]]:
         lib = ctypes.CDLL(str(out))
         p, i64 = ctypes.c_void_p, ctypes.c_int64
         old = path == base
-        lib.embedding_bag.argtypes = [p, i64, p, p, p, i64, *([p] if old else []), p, i64, p]
+        # the tree's entry takes the table's rows (jnp.take's id rule); the base's the offsets scratch
+        lib.embedding_bag.argtypes = [p, *([] if old else [i64]), i64, p, p, p, i64, *([p] if old else []), p, i64, p]
         lib.embedding_bag.restype = ctypes.c_int
         libs[path.name] = (lib, old)
     return libs
@@ -94,8 +95,9 @@ def run(entry, table, ids, segs, w, bags):
     lib, old = entry
     out = torch.empty(bags, table.shape[1], device=table.device)
     scratch = [torch.empty(bags + 1, dtype=torch.int64, device=table.device).data_ptr()] if old else []
-    status = lib.embedding_bag(table.data_ptr(), table.shape[1], ids.data_ptr(), segs.data_ptr(), w.data_ptr(),
-                               ids.shape[0], *scratch, out.data_ptr(), bags,
+    rows = [] if old else [table.shape[0]]
+    status = lib.embedding_bag(table.data_ptr(), *rows, table.shape[1], ids.data_ptr(), segs.data_ptr(),
+                               w.data_ptr(), ids.shape[0], *scratch, out.data_ptr(), bags,
                                torch.cuda.current_stream().cuda_stream)
     _build.check(status, "variant")
     return out
