@@ -12,7 +12,8 @@ tables), TinyLlama-1.1B serving at full width and depth, MoE serving
 at full width and depth, then the LM smoke configs (head dim 16) on the
 card, then the GNN family (MeshGraphNet, PNA, SchNet, GraphCast) trained at
 the published widths, then the two-tower model trained at the full width of
-``make_config()``. For a quick check at small
+``make_config()``, then the dry-run's 42 cells and the paper's own
+graph-engine cells at V = 2^26, E = 2^30. For a quick check at small
 sizes run ``tests/test_torch_cuda.py``. Phases, each raising on failure:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
@@ -162,7 +163,30 @@ sizes run ``tests/test_torch_cuda.py``. Phases, each raising on failure:
     of a control pass through the plain EmbeddingBag, the losses, step ms,
     examples/s, peak memory, 6 EmbeddingBag launches a step and a profiled
     step (device ms by kernel, each part's ms, idle share);
-15. isolation — neither JAX nor the JAX package was imported.
+15. the dry-run slice — (a) ``launch.dryrun.run_cell`` for every cell
+    (the 40 assigned and the graph engine's 2) on the single-pod plan with
+    the trip analysis, in ``DRYRUN_WORKERS`` processes (meta traces, CPU
+    only) while (b) runs: 42 records (written to ``build/dryrun/``), each
+    cell's ``lower_s``, FLOPs and whole-program argument GB beside the
+    card's memory; full-depth FLOPs equal to the trip-scaled ones in every
+    LM and GNN cell, except the MoE configs' ``train_4k``, whose trips (one
+    microbatch, as the reference runs them) cost more in the dense
+    dispatch, and which must then scale exactly from trips at their own
+    microbatch count; (b)
+    ``paper-graph-engine`` at the V = 2^26, E = 2^30 of its cells'
+    arguments: RMAT edges drawn on the card (Graph500's recipe, seed 3),
+    ``out_deg`` through the degree_count kernel equal to ``torch.bincount``,
+    one ``pr_iteration`` through the cell's step (median of 20 timed) and
+    ``0.15/V + 0.85 · spmv(build_tiles(src, dst, V), contrib)`` each row
+    within the float32 bound of a float64 sum, then ``bfs_expand`` from the
+    vertex of highest out-degree to its fixed point, each level's new
+    vertices equal to the spmv kernel's expansion of the frontier; step ms,
+    edges/s, levels, reached vertices, peak GB. The cells' steps are plain
+    PyTorch (``index_add_``, gathers, as the reference's ``segment_sum``
+    lies outside any ``pallas_call``): every kernel's count, zeroed before
+    each step and read after it, stays 0; the checks' own spmv and
+    degree_count launches are counted apart;
+16. isolation — neither JAX nor the JAX package was imported.
 
 The kernels' times go out as one JSON line. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -170,10 +194,13 @@ checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -368,6 +395,11 @@ RECSYS_CONTROL_RTOL = 1e-5
 # (d) recsys_serve_step at serve_p99 and serve_bulk against its plain
 # version on the card: dot products of unit vectors, summed in another order
 RECSYS_SERVE_TOL = 1e-5
+
+DRYRUN_WORKERS = 6  # processes for the sweep's meta traces (one core each), beside the main one
+ENGINE_SEED, ENGINE_PR_REPS = 3, 20
+ENGINE_CHUNK = 1 << 27  # edges a chunk where a pass over the 2^30 edges makes temporaries
+F32_U = 2.0**-24
 
 TIMED_BATCHES, TIMED_PER_BATCH = 5, 20
 # published H100 peaks (NVIDIA data sheets): HBM bytes/s by part, the
@@ -3061,6 +3093,290 @@ def recsys_train_path(dev: torch.device) -> dict:
             "launches_main_path": launches["embedding_bag"],
             "checks_a_s": t_a, "checks_b_s": t_b, "phase_s": time.perf_counter() - t_phase}
 
+def dryrun_cell(arch: str, shape: str) -> dict:
+    """Phase 15 (a)'s worker (a process of its own): ``run_cell`` of the
+    port's dry-run on the single-pod plan with the trip analysis, the trips
+    scaled to the full depth. Where the scaled FLOPs miss the full depth's,
+    also the trips at the cell's own microbatch count (the reference's
+    trips run one), which the check reads."""
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import full_depth, run_cell, scaled_totals
+    from repro_torch.launch.mesh import make_production_mesh
+
+    t0 = time.perf_counter()
+    rec = run_cell(arch, shape, "single", analysis=True)
+    if "trip1" in rec:
+        n = full_depth(arch, shape)
+        rec["scaled"], rec["n_layers_full"] = scaled_totals(rec, n), n
+        if rec["scaled"]["flop_counter_flops_scaled"] != rec["full"]["flop_counter_flops"]:
+            mod, mesh = get_arch(arch), make_production_mesh()
+            own = {f"trip{k}": {"flop_counter_flops": mod.make_cell(shape, n_layers_override=k).lower(mesh).flops}
+                   for k in (1, 2)}
+            rec["own_microbatches_flops_scaled"] = scaled_totals(own, n)["flop_counter_flops_scaled"]
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def check_dryrun(records: list[dict]) -> list[str]:
+    """Every LM and GNN cell has its trips, and its full depth's FLOPs equal
+    the trips' extrapolation; or, where they do not, it is a train cell of
+    an MoE config with more than one microbatch, whose extrapolation from
+    trips at its own microbatch count is exact (the dense dispatch costs
+    the square of a microbatch's tokens: one microbatch of them all costs
+    more). Returns those cells."""
+    from repro_torch.configs import get_arch
+
+    trips = [r for r in records if get_arch(r["arch"]).FAMILY in ("lm", "gnn")]
+    if len(trips) != 36 or any("trip1" not in r for r in trips):
+        raise AssertionError(f"dry-run: {len(trips)} LM/GNN cells, trips in {sum('trip1' in r for r in trips)}")
+    apart = []
+    for r in trips:
+        full, scaled = r["full"]["flop_counter_flops"], r["scaled"]["flop_counter_flops_scaled"]
+        if full == scaled:
+            continue
+        cfg = get_arch(r["arch"]).make_config()
+        moe_microbatched = r["kind"] == "train" and getattr(cfg, "moe", None) is not None and cfg.microbatches > 1
+        if not (moe_microbatched and scaled > full and r.get("own_microbatches_flops_scaled") == full):
+            raise AssertionError(f"dry-run {r['cell']}: full-depth FLOPs {full} vs trip-scaled {scaled} "
+                                 f"(own microbatches: {r.get('own_microbatches_flops_scaled')})")
+        apart.append(r["cell"])
+    return apart
+
+
+def rmat_on_card(scale: int, edge_factor: int, seed: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """Graph500's RMAT recipe (``graph/rmat.py``'s A, B, C: one random draw
+    and one bit of each endpoint a level, then a random vertex permutation)
+    drawn on the card from a seeded ``torch.Generator``, as int32 edge
+    arrays; numpy's ``rmat_edges`` would build int64 arrays of 8 GiB on the
+    host at scale 26."""
+    from repro_torch.graph.rmat import A, B, C
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v, e = 1 << scale, (1 << scale) * edge_factor
+    src = torch.zeros(e, dtype=torch.int32, device=dev)
+    dst = torch.zeros(e, dtype=torch.int32, device=dev)
+    ab, abc = A + B, A + B + C
+    for c0 in range(0, e, ENGINE_CHUNK):
+        s, d = src[c0 : c0 + ENGINE_CHUNK], dst[c0 : c0 + ENGINE_CHUNK]
+        for bit in range(scale):
+            r = torch.rand(s.shape[0], generator=gen, device=dev)
+            s |= (r >= ab).to(torch.int32) << bit                         # quadrants C and D
+            d |= (((r >= A) & (r < ab)) | (r >= abc)).to(torch.int32) << bit  # B and D
+    perm = torch.randperm(v, generator=gen, device=dev).to(torch.int32)
+    for c0 in range(0, e, ENGINE_CHUNK):
+        for t in (src, dst):
+            t[c0 : c0 + ENGINE_CHUNK] = perm.index_select(0, t[c0 : c0 + ENGINE_CHUNK])
+    return src, dst
+
+
+def pr_bound(exact: torch.Tensor, acc64: torch.Tensor, in_deg: torch.Tensor) -> torch.Tensor:
+    """The float32 error bound of ``0.15/V + 0.85 * sum`` over a row of n
+    nonnegative float32 terms, in any order of additions: gamma(n - 1) of
+    the exact sum for the additions (gamma(k) = k u / (1 - k u), u = 2^-24),
+    times 0.85, and a few u of the result for the product, the sum with the
+    constant and the constants' own roundings."""
+    n = (in_deg.double() - 1).clamp_min(0)
+    return 0.85 * (n * F32_U / (1 - n * F32_U)) * acc64 + 5 * F32_U * exact
+
+
+def graph_engine_at_scale(dev, bw: float, step_pr, step_bfs, v: int, e: int) -> dict:
+    """Phase 15 (b): the paper's own cells at V and E on the card (see the
+    module docstring)."""
+    from repro_torch.kernels.attention import flash_attention_cuda
+    from repro_torch.kernels.degree_count import degree_count_cuda
+    from repro_torch.kernels.degree_count.ops import count_into
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.kernels.scoring import scoring_cuda
+    from repro_torch.kernels.spmv import spmv_rows_cuda
+    from repro_torch.kernels.spmv.ops import build_tiles, spmv
+
+    wrappers = {"spmv": spmv_rows_cuda, "degree_count": degree_count_cuda, "scoring": scoring_cuda,
+                "embedding_bag": embedding_bag_cuda, "flash_attention": flash_attention_cuda}
+    step_launches = dict.fromkeys(wrappers, 0)                  # the cells' steps: each must stay 0
+    check_launches = dict.fromkeys(("spmv", "degree_count"), 0)  # the checks' kernels
+
+    @contextlib.contextmanager
+    def counting(into: dict):
+        """Every count zeroed just before the block, read just after it."""
+        for w in wrappers.values():
+            w.launches = 0
+        yield
+        for name in into:
+            into[name] += wrappers[name].launches
+
+    scale, edge_factor = v.bit_length() - 1, e // v
+    if (1 << scale, v * edge_factor) != (v, e):
+        raise AssertionError(f"graph engine: V = {v}, E = {e} is not an RMAT size")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    src, dst = rmat_on_card(scale, edge_factor, ENGINE_SEED, dev)
+    torch.cuda.synchronize()
+    rmat_s = time.perf_counter() - t_phase
+
+    # out-degrees through the degree_count kernel, held to bincount
+    with counting(check_launches):
+        out_deg = count_into(src, torch.zeros(v, dtype=torch.int32, device=dev))
+    if not torch.equal(out_deg, torch.bincount(src, minlength=v).to(torch.int32)):
+        raise AssertionError("graph engine: degree_count's out-degrees differ from torch.bincount")
+    in_deg = torch.bincount(dst, minlength=v)
+
+    # one PageRank-pull iteration through the cell's step, timed
+    gen = torch.Generator(device=dev).manual_seed(ENGINE_SEED)
+    rank = torch.rand(v, generator=gen, device=dev)
+    rank /= rank.sum()
+    with counting(step_launches):
+        pr = step_pr(src, dst, rank, out_deg)
+        ms = []
+        for _ in range(ENGINE_PR_REPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            again = step_pr(src, dst, rank, out_deg)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+            del again
+        # where a step's device time goes
+        by_kernel, _ = device_time_by_kernel(lambda: step_pr(src, dst, rank, out_deg), tries=3)
+    pr_ms = float(np.median(ms))
+    pr_kernels = {short_kernel_name(k): v for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]}
+
+    # the same terms summed in float64 (exact to ~1e-16), chunk by chunk
+    contrib = torch.where(out_deg > 0, rank / torch.clamp_min(out_deg, 1), 0.0)
+    c64 = contrib.double()
+    acc64 = torch.zeros(v, dtype=torch.float64, device=dev)
+    for c0 in range(0, e, ENGINE_CHUNK):
+        acc64.index_add_(0, dst[c0 : c0 + ENGINE_CHUNK], c64.index_select(0, src[c0 : c0 + ENGINE_CHUNK]))
+    del c64
+    exact = 0.15 / v + 0.85 * acc64
+    bound = pr_bound(exact, acc64, in_deg)
+
+    # the spmv kernel over the same edges: the main path's PR-pull aggregation
+    t0 = time.perf_counter()
+    tiles = build_tiles(src, dst, v)
+    torch.cuda.synchronize()
+    tiles_s = time.perf_counter() - t0
+    with counting(check_launches):
+        via_spmv = 0.15 / v + 0.85 * spmv(tiles, contrib)
+    errs = {}
+    for name, got in (("pr_step", pr), ("spmv", via_spmv)):
+        diff = (got.double() - exact).abs()
+        if not bool((diff <= bound).all()):
+            worst = int((diff - bound).argmax())
+            raise AssertionError(f"graph engine: {name} row {worst} off by {float(diff[worst])} "
+                                 f"(bound {float(bound[worst])}, in-degree {int(in_deg[worst])})")
+        errs[name] = float((diff / exact).max())
+    del exact, bound, acc64, via_spmv, pr
+
+    # BFS from the vertex of highest out-degree to its fixed point; each
+    # level's new vertices equal to the spmv kernel's expansion of the frontier
+    source = int(out_deg.argmax())
+    visited = torch.zeros(v, dtype=torch.bool, device=dev)
+    visited[source] = True
+    frontier = visited.clone()
+    levels, bfs_ms = 0, []
+    while True:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with counting(step_launches):
+            a.record()
+            nxt, new = step_bfs(src, dst, visited, frontier)
+            b.record()
+            torch.cuda.synchronize()
+        bfs_ms.append(a.elapsed_time(b))
+        with counting(check_launches):
+            want = (spmv(tiles, frontier.float()) > 0) & ~visited
+        if not torch.equal(new, want):
+            raise AssertionError(f"graph engine: BFS level {levels + 1} differs from the spmv kernel's expansion "
+                                 f"({int((new != want).sum())} vertices)")
+        if not bool(new.any()):
+            break
+        levels += 1
+        visited, frontier = nxt, new
+    reached = int(visited.sum())
+    torch.cuda.synchronize()
+    if any(step_launches.values()):
+        raise AssertionError(f"graph engine: the cells' steps launched kernels: {step_launches}")
+    if min(check_launches.values()) == 0:
+        raise AssertionError(f"graph engine: a check's kernel did not launch: {check_launches}")
+    # both kernels at this size, beside the step (counted in neither)
+    spmv_ms = time_ms(lambda: spmv(tiles, contrib), warmup=1, batches=3, per_batch=5)
+    counts = torch.zeros(v, dtype=torch.int32, device=dev)
+    dc_ms = time_ms(lambda: count_into(src, counts), warmup=1, batches=3, per_batch=5)
+    bincount_ms = time_ms(lambda: torch.bincount(src, minlength=v), warmup=1, batches=3, per_batch=5)
+    n_rows = tiles.row_ptr.shape[0] - 1
+    record = {
+        "V": v, "E": e, "rmat_scale": scale, "rmat_s": rmat_s, "build_tiles_s": tiles_s,
+        "pr_step_ms_median": pr_ms, "pr_step_ms": ms, "pr_edges_per_s": e / (pr_ms / 1e3),
+        # each argument read once and the ranks written once, at the card's memory rate
+        "pr_step_bound_ms": (2 * e * 4 + 3 * v * 4) / bw * 1e3,
+        "pr_step_device_ms_by_kernel": pr_kernels, "pr_step_device_busy_ms": sum(by_kernel.values()),
+        # bytes read or written once: sources, offsets, the vector, the sums
+        "spmv_sweep_ms": spmv_ms, "spmv_sweep_bound_ms": (e * 4 + (n_rows + 1) * 8 + v * 4 + n_rows * 4) / bw * 1e3,
+        # the ids once, the counters read and written once
+        "degree_count_ms": dc_ms, "degree_count_bound_ms": (e * 4 + 2 * v * 4) / bw * 1e3,
+        "degree_count_library_ms": bincount_ms,
+        "pr_max_rel_err_vs_float64": errs, "bfs_source": source, "bfs_levels": levels,
+        "bfs_reached": reached, "bfs_step_ms": bfs_ms, "bfs_ms_total": float(sum(bfs_ms)),
+        "bfs_edges_per_s": e * len(bfs_ms) / (sum(bfs_ms) / 1e3),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "step_launches": step_launches, "check_launches": check_launches,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    del src, dst, tiles, visited, frontier, out_deg, in_deg, counts
+    return record
+
+
+def dryrun_path(dev: torch.device, bw: float) -> dict:
+    """Phase 15: the dry-run slice. (a) the sweep runs in ``DRYRUN_WORKERS``
+    processes (meta traces: CPU only) while (b) runs on the card."""
+    from repro_torch.configs import all_cells, get_arch
+
+    mod = get_arch("paper-graph-engine")
+    cells = all_cells() + [("paper-graph-engine", s) for s in mod.SHAPES]
+    pr_cell, bfs_cell = mod.make_cell("pr_iteration"), mod.make_cell("bfs_expand")
+    e, v = pr_cell.abstract_args[0].shape[0], pr_cell.abstract_args[2].shape[0]
+    # the longest traces first: train cells, deepest configs
+    order = sorted(cells, key=lambda c: (not c[1].startswith("train"), c[0] not in ("granite-34b", "grok-1-314b")))
+    t0 = time.perf_counter()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(DRYRUN_WORKERS, max((os.cpu_count() or 2) - 2, 1)),
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = {c: pool.submit(dryrun_cell, *c) for c in order}
+        engine = graph_engine_at_scale(dev, bw, pr_cell.step_fn, bfs_cell.step_fn, v, e)
+        log(json.dumps({"dryrun_graph_engine": engine}))
+        records = [futures[c].result() for c in cells]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    sweep_s = time.perf_counter() - t0
+    # the records as the CLI's --single writes them
+    out = ROOT / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    paths = [out / f"{r['arch']}__{r['shape']}__single.json" for r in records]
+    for path, r in zip(paths, records):
+        path.write_text(json.dumps(r, indent=1))
+    written = sum(path.is_file() for path in set(paths))
+    apart = check_dryrun(records)
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    for r in records:
+        log(f"  dryrun {r['cell']}: lower_s {r['lower_s']} flops {r['full']['flop_counter_flops']} "
+            f"args {r['full']['memory']['argument_bytes_total'] / 1e9:.2f} GB (card {card_gb:.1f} GB), "
+            f"per chip {r['full']['memory']['argument_bytes'] / 1e9:.3f} GB, wall {r['wall_s']:.1f} s")
+    summary = {
+        "records": len(records), "written": written, "cells": len(cells),
+        "trips_exact": sum("trip1" in r for r in records) - len(apart),
+        "trips_one_microbatch_apart": {r["cell"]: {"full": r["full"]["flop_counter_flops"],
+                                                   "scaled": r["scaled"]["flop_counter_flops_scaled"]}
+                                       for r in records if r["cell"] in apart},
+        "sweep_wall_s": sweep_s, "trace_cpu_s": sum(r["wall_s"] for r in records),
+        "lower_s": {r["cell"]: r["lower_s"] for r in records},
+    }
+    log(json.dumps({"dryrun_sweep": summary}))
+    if len(records) != 42 or written != 42:
+        raise AssertionError(f"dry-run: {len(records)} of 42 records, {written} written")
+    return {"engine": engine, "sweep": summary}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3188,7 +3504,18 @@ def main() -> int:
     bag["training"] = {"functions": recsys["functions"], "serve": recsys["serve"],
                        "profiled_step": recsys["full_width"]["profiled_step"]}
 
-    # 15. isolation -------------------------------------------------------------
+    # 15. the dry-run slice --------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()  # the two-tower tables are gone; the 2^30 edges need the room
+    t0 = time.perf_counter()
+    dry = dryrun_path(dev, bw)
+    log(f"dry-run phase: {time.perf_counter() - t0:.1f} s")
+    for k in kernels:  # the cells' steps launch none; the checks' launches apart
+        k["launches_by_phase"]["dryrun_graph_engine"] = dry["engine"]["step_launches"][k["name"]]
+    for k in (spmv, dc):
+        k["check_launches_by_phase"] = {"dryrun_graph_engine": dry["engine"]["check_launches"][k["name"]]}
+
+    # 16. isolation -------------------------------------------------------------
     leaked = sorted(m for m in sys.modules if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     if leaked:
         raise AssertionError(f"imported the JAX side: {leaked}")

@@ -10,6 +10,7 @@ retrieval server (``layers.embedding``, ``models.recsys`` with the MLP of
 attention}``, ``models.transformer``, ``serving.ServingEngine``,
 ``launch.serve``), LM training (``models.transformer``'s forward and
 loss, ``optim``, ``data``, ``ckpt``, ``launch.steps.lm_train_step``,
-``launch.train``), with the configs in ``configs`` and the cell shapes in
-``launch.steps``. Entry points run on the CUDA device unless the caller
+``launch.train``), with the configs in ``configs``, and the dry-run
+(``sharding``, ``launch.{steps,mesh,dryrun}``: every cell's program,
+sharding plan and meta trace). Entry points run on the CUDA device unless the caller
 passes ``device="cpu"``."""

@@ -1,1 +1,1 @@
-from .registry import PORTED_ARCHS, get_arch
+from .registry import ASSIGNED_ARCHS, all_cells, arch_shapes, get_arch

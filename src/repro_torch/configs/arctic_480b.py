@@ -1,9 +1,12 @@
 """arctic-480b [hf:Snowflake/snowflake-arctic-base; hf]: MoE 128 experts
 top-2 + dense residual. 35L d_model=7168 56H (GQA kv=8) d_ff=4864
-vocab=32000. ``make_cell`` waits for the dry-run slice."""
+vocab=32000.
+
+Note: 56 heads are not divisible by the 16-way 'model' axis — attention
+weights replicate across 'model' in the sharding plan."""
 from ..layers.moe import MoEConfig
 from ..models.transformer import LMConfig
-from .lm_common import SHAPES as SHAPES, smoke_lm
+from .lm_common import SHAPES as SHAPES, lm_cell, smoke_lm
 
 ARCH_ID = "arctic-480b"
 FAMILY = "lm"
@@ -21,3 +24,7 @@ def make_config(dispatch: str = "dense", dispatch_groups: int = 16) -> LMConfig:
 
 def make_smoke_config() -> LMConfig:
     return smoke_lm(make_config())
+
+
+def make_cell(shape: str, *, dispatch: str = "dense", **overrides):
+    return lm_cell(make_config(dispatch), shape, OPTIMIZER, **overrides)

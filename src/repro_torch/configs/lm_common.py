@@ -1,15 +1,37 @@
-"""Shared plumbing for the LM arch configs. The reference's ``lm_cell``
-(the training and dry-run cell programs) waits for the dry-run slice."""
+"""Shared plumbing for the five LM arch configs."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
 
-from ..launch.steps import LM_SHAPES
+from ..launch.steps import CellProgram, LM_SHAPES, make_lm_cell
 from ..models.transformer import LMConfig
+from ..optim import OptimizerConfig
 
 SHAPES = list(LM_SHAPES)
+
+
+def lm_cell(
+    base_cfg: LMConfig,
+    shape: str,
+    optimizer: str,
+    *,
+    n_layers_override: int | None = None,
+    microbatches_override: int | None = None,
+    seq_parallel: bool = False,
+) -> CellProgram:
+    cfg = base_cfg
+    if n_layers_override is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers_override)
+    if microbatches_override is not None:
+        cfg = dataclasses.replace(cfg, microbatches=microbatches_override)
+    if seq_parallel:
+        cfg = dataclasses.replace(cfg, seq_parallel=True)
+    if shape != "train_4k":
+        cfg = dataclasses.replace(cfg, microbatches=1)
+    opt_cfg = OptimizerConfig(name=optimizer)
+    return make_lm_cell(cfg, shape, opt_cfg)
 
 
 def smoke_lm(base_cfg: LMConfig) -> LMConfig:

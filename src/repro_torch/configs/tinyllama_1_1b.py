@@ -1,8 +1,7 @@
 """tinyllama-1.1b [arXiv:2401.02385; hf]: llama2-arch small.
-22L d_model=2048 32H (GQA kv=4) d_ff=5632 vocab=32000. ``make_cell`` waits
-for the dry-run slice."""
+22L d_model=2048 32H (GQA kv=4) d_ff=5632 vocab=32000."""
 from ..models.transformer import LMConfig
-from .lm_common import SHAPES as SHAPES, smoke_lm
+from .lm_common import SHAPES as SHAPES, lm_cell, smoke_lm
 
 ARCH_ID = "tinyllama-1.1b"
 FAMILY = "lm"
@@ -18,3 +17,7 @@ def make_config() -> LMConfig:
 
 def make_smoke_config() -> LMConfig:
     return smoke_lm(make_config())
+
+
+def make_cell(shape: str, **overrides):
+    return lm_cell(make_config(), shape, OPTIMIZER, **overrides)

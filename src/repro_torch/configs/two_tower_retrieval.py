@@ -4,9 +4,8 @@ tower MLPs 1024-512-256, dot interaction, sampled softmax.
 Vocab sizes are powers of two (the paper gives none), the reference's
 numbers. The model trains with ``launch.steps.recsys_train_step`` under
 :data:`OPTIMIZER` (the optimizer of the reference's ``make_cell``) and
-serves with ``recsys_serve_step``; ``make_cell`` itself waits with the
-cell programs of ``launch.steps``."""
-from ..launch.steps import RECSYS_SHAPES
+serves with ``recsys_serve_step``, the steps of ``make_cell``'s programs."""
+from ..launch.steps import RECSYS_SHAPES, make_recsys_cell
 from ..models.recsys import FieldSpec, TwoTowerConfig
 from ..optim import OptimizerConfig
 
@@ -38,3 +37,7 @@ def make_smoke_config() -> TwoTowerConfig:
         user_fields=(FieldSpec("user_id", 1024), FieldSpec("user_history", 512, multi_hot=4)),
         item_fields=(FieldSpec("item_id", 1024), FieldSpec("item_category", 64)),
     )
+
+
+def make_cell(shape: str, **_):
+    return make_recsys_cell(make_config(), shape, OPTIMIZER)

@@ -27,6 +27,14 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def seeded_generator(device: torch.device, seed: int) -> torch.Generator | None:
+    """A generator on ``device`` seeded with ``seed``, for a model's initial
+    draws; ``None`` on ``meta``, which has no generator: a meta tensor holds
+    no numbers, so its draws are shape-only and a model built there has the
+    shapes and dtypes of one built on a device."""
+    return None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
+
+
 @dataclasses.dataclass(frozen=True)
 class CSRGraph:
     """Compressed-sparse-row adjacency (out-edges).

@@ -1,5 +1,7 @@
 """Device-dispatching attention entries: the CUDA kernel on CUDA tensors,
-the plain blocked online softmax on CPU ones. ``block_kv`` is the plain
+the plain blocked online softmax on CPU ones and on ``meta`` ones (the
+dry-run's trace, where it computes nothing and its products are counted as
+the backward's are). ``block_kv`` is the plain
 version's KV block (and the backward's); the kernel tiles by its own
 ``BLOCK_K``.
 
@@ -17,7 +19,7 @@ from .flash_attention import flash_attention_backward_plain, flash_attention_cud
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_kv: int) -> torch.Tensor:
     if q.device.type == "cuda":
         return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous())
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: the dry-run's trace, shapes and FLOPs, no work
         return flash_attention_plain(q, k, v, block_kv=block_kv)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 

@@ -1,6 +1,7 @@
 """Device-dispatching degree-count entry points: reduce ids modulo the
 counter-array size (Eq. 11 semantics: counter per vertex id) and histogram
-them with the CUDA kernel on a CUDA tensor, the plain version on a CPU one."""
+them with the CUDA kernel on a CUDA tensor, the plain version on a CPU one
+(a ``meta`` one, the dry-run's, is returned as it is)."""
 from __future__ import annotations
 
 import torch
@@ -14,6 +15,8 @@ def count_into(ids: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
         return degree_count_cuda(ids, counts)
     if counts.device.type == "cpu":
         return degree_count_plain(ids, counts)
+    if counts.device.type == "meta":  # the dry-run's trace: the counters themselves, no work
+        return counts
     raise ValueError(f"degree_count: unsupported device {counts.device}")
 
 

@@ -1,6 +1,7 @@
 """Device-dispatching EmbeddingBag entry: stably sort the (id, segment)
 pairs by segment, as the reference's ``ops.embedding_bag`` does, then run
-the CUDA kernel on a CUDA table and the plain version on a CPU one.
+the CUDA kernel on a CUDA table and the plain version on a CPU one (on a
+``meta`` one, the dry-run's, give the output's shape alone).
 
 The reference also appends one weight-0 sentinel per bag so that the TPU's
 revisit pattern initialises every output row; the kernel writes every bag
@@ -24,6 +25,8 @@ def _forward(table, ids, segments, weights, num_bags: int) -> torch.Tensor:
         return embedding_bag_cuda(table, ids, segments, weights, num_bags)
     if table.device.type == "cpu":
         return embedding_bag_plain(table, ids, segments, weights, num_bags)
+    if table.device.type == "meta":  # the dry-run's trace: the plain version's shape and type, no work
+        return table.new_empty((num_bags, table.shape[1]))
     raise ValueError(f"embedding_bag: unsupported device {table.device}")
 
 

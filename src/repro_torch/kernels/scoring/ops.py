@@ -1,6 +1,7 @@
 """Device-dispatching scoring entry: pad the candidates to whole tiles,
 score them (the CUDA kernel on a CUDA tensor, the plain version on a CPU
-one), and reduce a hierarchical top-k, as the reference's ``score_topk``."""
+one and on a ``meta`` one, the dry-run's trace, where it computes nothing
+and its product is counted), and reduce a hierarchical top-k, as the reference's ``score_topk``."""
 from __future__ import annotations
 
 import torch
@@ -13,7 +14,7 @@ NEG = -3.0e38
 def _scores(queries: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
     if candidates.device.type == "cuda":
         return scoring_cuda(queries, candidates)
-    if candidates.device.type == "cpu":
+    if candidates.device.type in ("cpu", "meta"):  # meta: the dry-run's trace, shapes and FLOPs, no work
         return scoring_plain(queries, candidates)
     raise ValueError(f"scoring: unsupported device {candidates.device}")
 

@@ -129,7 +129,8 @@ def build_tiles(src: torch.Tensor, dst: torch.Tensor, num_vertices: int) -> Spmv
 def spmv_tiles(tables: SpmvTiles, contrib: torch.Tensor, t0: int, t1: int) -> torch.Tensor:
     """Per-target sums for tiles [t0, t1) of ``tables``: ``[t1 - t0, DST_TILE]``
     float32, zeros for targets past the last vertex. A CUDA tensor goes to
-    the kernel, a CPU tensor to the plain version."""
+    the kernel, a CPU tensor to the plain version; a ``meta`` tensor gets
+    the output's shape alone."""
     r0, r1 = t0 * DST_TILE, t1 * DST_TILE
     if contrib.device.type == "cuda":
         out = spmv_rows_cuda(
@@ -139,6 +140,8 @@ def spmv_tiles(tables: SpmvTiles, contrib: torch.Tensor, t0: int, t1: int) -> to
         )
     elif contrib.device.type == "cpu":
         out = spmv_rows_plain(tables.row_ptr[r0 : r1 + 1], tables.src, contrib)
+    elif contrib.device.type == "meta":  # the dry-run's trace: the plain version's shape and type, no work
+        out = contrib.new_empty(r1 - r0)
     else:
         raise ValueError(f"spmv: unsupported device {contrib.device}")
     return out.reshape(t1 - t0, DST_TILE)

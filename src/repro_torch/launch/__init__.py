@@ -1,3 +1,4 @@
 """Launchers and cell programs (the reference's ``repro.launch``): the cell
-shapes, the LM and GNN train steps, and the serving and training launchers. The
-dry-run's cell programs wait for a later slice."""
+shapes, steps and cell programs (``steps``), the mesh descriptions
+(``mesh``), the dry-run (``dryrun``), and the serving and training
+launchers."""

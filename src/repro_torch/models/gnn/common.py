@@ -27,7 +27,7 @@ in]``). A GNN model's parameters follow the reference's tree: an
 stacks layers on axis 0 (``jax.vmap`` of the init). :func:`params_tree`
 builds the reference's tree from such a model (layers stacked again) and
 :func:`state_from_tree` takes one apart into a state dict.
-``mlp_logical_axes`` waits for the sharding slice.
+:func:`mlp_logical_axes` gives an MLP tree's logical axes.
 """
 from __future__ import annotations
 
@@ -79,6 +79,21 @@ class MLP(nn.Module):
             out["ln_scale"] = val(self.norm.weight)
             out["ln_bias"] = val(self.norm.bias)
         return out
+
+
+def mlp_logical_axes(params: dict, prefix: tuple = ()) -> dict:
+    """Logical axes for an ``mlp_init`` tree (:meth:`MLP.tree`): hidden dims
+    shard over 'mlp'."""
+    out: dict = {
+        "layers": [
+            {"w": prefix + ("gnn_in", "mlp"), "b": prefix + ("mlp",)}
+            for _ in params["layers"]
+        ]
+    }
+    if "ln_scale" in params:
+        out["ln_scale"] = prefix + ("mlp",)
+        out["ln_bias"] = prefix + ("mlp",)
+    return out
 
 
 def _tensor(a) -> torch.Tensor:

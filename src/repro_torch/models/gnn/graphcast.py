@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...graph.structure import resolve_device
+from ...graph.structure import resolve_device, seeded_generator
 from .common import MLP, aggregate, masked_mse, state_from_tree
 
 
@@ -101,7 +101,7 @@ class GraphCast(nn.Module):
     def __init__(self, cfg: GraphCastConfig, *, seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         d = cfg.d_hidden
 
         def mlp(sizes, **kw) -> MLP:
@@ -117,6 +117,9 @@ class GraphCast(nn.Module):
         self.m2g = interaction()
         self.decoder = mlp(_sizes(cfg, d, cfg.n_vars), layernorm=False)
         self.processor = nn.ModuleList(interaction() for _ in range(cfg.n_layers))
+
+
+MODEL = GraphCast  # the model class of this module (``launch.steps.make_gnn_cell`` builds it)
 
 
 def params_from_jax(cfg: GraphCastConfig, tree: dict) -> dict[str, torch.Tensor]:

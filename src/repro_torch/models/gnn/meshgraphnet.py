@@ -16,7 +16,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from ...graph.structure import resolve_device
+from ...graph.structure import resolve_device, seeded_generator
 from .common import MLP, aggregate, masked_mse, state_from_tree
 
 
@@ -48,7 +48,7 @@ class MeshGraphNet(nn.Module):
     def __init__(self, cfg: MGNConfig, *, seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         d = cfg.d_hidden
 
         def mlp(sizes, **kw) -> MLP:
@@ -62,6 +62,9 @@ class MeshGraphNet(nn.Module):
             nn.ModuleDict({"edge_mlp": mlp(_mlp_sizes(cfg, 3 * d)), "node_mlp": mlp(_mlp_sizes(cfg, 2 * d))})
             for _ in range(cfg.n_layers)
         )
+
+
+MODEL = MeshGraphNet  # the model class of this module (``launch.steps.make_gnn_cell`` builds it)
 
 
 def params_from_jax(cfg: MGNConfig, tree: dict) -> dict[str, torch.Tensor]:

@@ -19,7 +19,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from ...graph.structure import resolve_device
+from ...graph.structure import resolve_device, seeded_generator
 from .common import MLP, aggregate, masked_ce, state_from_tree
 
 EPS = 1e-5
@@ -49,7 +49,7 @@ class PNA(nn.Module):
     def __init__(self, cfg: PNAConfig, *, seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         d = cfg.d_hidden
         n_ch = len(cfg.aggregators) * len(cfg.scalers)
 
@@ -63,6 +63,9 @@ class PNA(nn.Module):
             nn.ModuleDict({"pre": mlp([2 * d] + [d] * cfg.mlp_layers), "post": mlp([n_ch * d, d])})
             for _ in range(cfg.n_layers)
         )
+
+
+MODEL = PNA  # the model class of this module (``launch.steps.make_gnn_cell`` builds it)
 
 
 def params_from_jax(cfg: PNAConfig, tree: dict) -> dict[str, torch.Tensor]:

@@ -18,7 +18,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from ...graph.structure import resolve_device
+from ...graph.structure import resolve_device, seeded_generator
 from .common import MLP, aggregate, state_from_tree
 
 
@@ -62,7 +62,7 @@ class SchNet(nn.Module):
     def __init__(self, cfg: SchNetConfig, *, seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         d = cfg.d_hidden
 
         def mlp(sizes, **kw) -> MLP:
@@ -80,6 +80,9 @@ class SchNet(nn.Module):
             })
             for _ in range(cfg.n_interactions)
         )
+
+
+MODEL = SchNet  # the model class of this module (``launch.steps.make_gnn_cell`` builds it)
 
 
 def params_from_jax(cfg: SchNetConfig, tree: dict) -> dict[str, torch.Tensor]:

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..graph.structure import resolve_device
+from ..graph.structure import resolve_device, seeded_generator
 from ..kernels.scoring import score_topk
 from ..layers.embedding import embedding_bag
 from .gnn.common import MLP, mlp_state_from_jax
@@ -67,7 +67,7 @@ class TwoTower(nn.Module):
     def __init__(self, cfg: TwoTowerConfig, *, seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         self.cfg = cfg
 
         def tables(fields) -> nn.ParameterDict:

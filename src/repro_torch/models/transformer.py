@@ -21,13 +21,18 @@ reference's choice per call (``_block``): the blocked attention, through
 ``kernels.attention.FlashAttention`` (the kernel's forward, a plain
 PyTorch backward), where the sequence is longer than ``cfg.block_kv``, and
 ``repeat_kv`` + ``full_causal_attention`` otherwise; ``cfg.remat`` maps to
-``torch.utils.checkpoint`` per layer. The reference's ``constrain``
-(activation sharding) and ``scan_unroll`` have no counterpart on one
-device. A layer's feed-forward block is the SwiGLU ``mlp`` or, when
-``cfg.moe`` is set (grok-1, arctic), ``layers.moe.moe_block`` over the
-layer's ``moe`` weights; serving discards its auxiliary loss, as the
-reference does, and training adds it to the loss. The abstract/sharding
-helpers wait for the dry-run slice.
+``torch.utils.checkpoint`` per layer. The models do not call the
+reference's ``constrain`` (activation sharding; a no-op on one device) or
+``scan_unroll`` (the layers are a Python loop). A layer's feed-forward
+block is the SwiGLU ``mlp`` or, when ``cfg.moe`` is set (grok-1, arctic),
+``layers.moe.moe_block`` over the layer's ``moe`` weights; serving
+discards its auxiliary loss, as the reference does, and training adds it
+to the loss.
+
+The dry-run's helpers: :func:`init_params` (the reference's tree of a
+fresh model), :func:`abstract_params` (the same tree on the ``meta``
+device: shapes and dtypes, no storage), :func:`logical_axes`,
+:func:`abstract_cache` and :func:`cache_logical_axes`.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..graph.structure import resolve_device
+from ..graph.structure import resolve_device, seeded_generator
 from ..layers.attention import attention_layer, blocked_causal_attention_gqa, decode_attention, gqa_project
 from ..layers.mlp import swiglu
 from ..layers.moe import MoEConfig, moe_block
@@ -143,7 +148,7 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None, masters: bool = False):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         self.cfg = cfg
         matrix_dtype = cfg.param_dtype if masters else cfg.dtype
 
@@ -162,6 +167,60 @@ class TransformerLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+
+def init_params(cfg: LMConfig, *, seed: int = 0, device=None) -> dict:
+    """The reference's ``init_params`` tree (float32 masters, layers stacked
+    on axis 0), drawn as :class:`TransformerLM` draws them from ``seed`` on
+    ``device`` (the card unless the caller names another)."""
+    return params_tree(TransformerLM(cfg, seed=seed, device=device, masters=True))
+
+
+def abstract_params(cfg: LMConfig) -> dict:
+    """:func:`init_params`'s tree on the ``meta`` device (no allocation) for
+    the dry-run."""
+    return init_params(cfg, device="meta")
+
+
+def logical_axes(cfg: LMConfig) -> dict:
+    """Tree (same structure as params) of logical axis-name tuples."""
+    ln_l = {"scale": ("layers", "embed_nope")}
+    layer: dict = {
+        "ln1": dict(ln_l),
+        "ln2": dict(ln_l),
+        "attn": {
+            "wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed"),
+        },
+    }
+    if cfg.moe:
+        moe = {
+            "w_router": ("layers", "embed", "experts_nope"),
+            "wi_gate": ("layers", "experts", "embed", "mlp"),
+            "wi_up": ("layers", "experts", "embed", "mlp"),
+            "wo": ("layers", "experts", "mlp", "embed"),
+        }
+        if cfg.moe.dense_residual:
+            moe["residual"] = {
+                "wi_gate": ("layers", "embed", "mlp"),
+                "wi_up": ("layers", "embed", "mlp"),
+                "wo": ("layers", "mlp", "embed"),
+            }
+        layer["moe"] = moe
+    else:
+        layer["mlp"] = {
+            "wi_gate": ("layers", "embed", "mlp"),
+            "wi_up": ("layers", "embed", "mlp"),
+            "wo": ("layers", "mlp", "embed"),
+        }
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": layer,
+        "final_norm": {"scale": ("embed_nope",)},
+        "lm_head": ("embed", "vocab"),
+    }
 
 
 def params_from_jax(cfg: LMConfig, tree: dict) -> dict[str, torch.Tensor]:
@@ -292,6 +351,19 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, device=None)
         "k": torch.zeros(shape, dtype=dtype, device=dev),
         "v": torch.zeros(shape, dtype=dtype, device=dev),
         "len": torch.zeros(batch, dtype=torch.int32, device=dev),
+    }
+
+
+def abstract_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None) -> dict:
+    """:func:`init_cache`'s tree on the ``meta`` device."""
+    return init_cache(cfg, batch, max_len, dtype, device="meta")
+
+
+def cache_logical_axes() -> dict:
+    return {
+        "k": ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+        "v": ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+        "len": ("batch",),
     }
 
 

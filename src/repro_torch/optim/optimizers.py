@@ -8,7 +8,7 @@ factoring test (``ndim >= 2``) and update-RMS clipping act on whole leaves:
 a stacked ``[L, D]`` norm scale is factored, and one RMS clips all L
 layers of a leaf together. ``torch.optim.AdamW`` is not used: it applies
 the decoupled weight decay in another order. ``opt_state_logical_axes``
-waits for the sharding slice.
+gives the state's logical axes for the dry-run's sharding plan.
 
 ``clip_by_global_norm_`` and ``adamw_update_`` are in-place forms for
 trees too large to copy (the two-tower model's 18.54 GB of tables: a
@@ -231,3 +231,22 @@ def opt_state_from_jax(tree, device=None):
     ``device`` (the card unless the caller names another)."""
     dev = resolve_device(device)
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
+
+
+def opt_state_logical_axes(cfg: OptimizerConfig, params_axes):
+    """Logical axes for the optimizer state, derived from the param axes
+    (a tree with a tuple of names at each leaf)."""
+    if cfg.name == "adamw":
+        return {
+            "mu": params_axes,
+            "nu": params_axes,
+            "step": (),
+        }
+
+    def factored_axes(ax):
+        ax = tuple(ax)
+        if len(ax) >= 2:
+            return {"v_row": ax[:-1], "v_col": ax[:-2] + ax[-1:]}
+        return {"v": ax}
+
+    return {"v": tree_map(factored_axes, params_axes), "step": ()}

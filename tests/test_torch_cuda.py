@@ -1157,3 +1157,95 @@ def test_inplace_adamw_on_card_is_bit_equal_to_the_functional(cuda, chunk_rows):
         for tree, ref in ((params, ref_params), (state["mu"], ref_state["mu"]), (state["nu"], ref_state["nu"])):
             assert all(torch.equal(a, b) for a, b in zip(tree_leaves(tree), tree_leaves(ref)))
     assert int(state["step"]) == 3
+
+
+# ---------------------------------------------------------------------------
+# the dry-run slice on the card
+# ---------------------------------------------------------------------------
+
+# float32 sums of the same terms in another order (atomics on the card):
+# the reference's PageRank tolerances
+ENGINE_PR_RTOL, ENGINE_PR_ATOL = 2e-4, 1e-8
+
+
+def test_graph_engine_cells_on_card_equal_the_cpu(cuda, monkeypatch):
+    """``pr_iteration`` and ``bfs_expand`` at RMAT scale 10 (seed 3) with
+    ``V``/``E`` set to the graph's: the card's PR step within the reference's
+    tolerances of the CPU's, and every BFS level equal to the CPU's up to the
+    fixed point."""
+    from repro_torch.configs import paper_graph_engine as engine
+    from repro_torch.graph.rmat import rmat_edges
+
+    src, dst = (torch.from_numpy(a.astype(np.int32)) for a in rmat_edges(10, seed=3))
+    v = 1 << 10
+    monkeypatch.setattr(engine, "V", v)
+    monkeypatch.setattr(engine, "E", src.shape[0])
+    pr, bfs = engine.make_cell("pr_iteration").step_fn, engine.make_cell("bfs_expand").step_fn
+    rank = torch.rand(v, generator=torch.Generator().manual_seed(3))
+    out_deg = torch.bincount(src, minlength=v).to(torch.int32)
+    got = pr(src.to(cuda), dst.to(cuda), rank.to(cuda), out_deg.to(cuda))
+    torch.testing.assert_close(got.cpu(), pr(src, dst, rank, out_deg), rtol=ENGINE_PR_RTOL, atol=ENGINE_PR_ATOL)
+    visited = torch.zeros(v, dtype=torch.bool)
+    visited[int(out_deg.argmax())] = True
+    frontier, levels = visited.clone(), 0
+    while bool(frontier.any()):
+        got_vis, got_new = bfs(src.to(cuda), dst.to(cuda), visited.to(cuda), frontier.to(cuda))
+        visited, frontier = bfs(src, dst, visited, frontier)
+        assert torch.equal(got_vis.cpu(), visited) and torch.equal(got_new.cpu(), frontier)
+        levels += 1
+    assert levels > 2
+
+
+def test_meta_branches_give_the_card_outputs_shapes(cuda):
+    """Each kernel entry's ``meta`` branch gives the shape and type of the
+    kernel's output on the card and of the plain version's on the CPU."""
+    from repro_torch.kernels.attention.ops import flash_attention_gqa
+    from repro_torch.kernels.degree_count.ops import count_into
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.scoring.ops import score_topk
+    from repro_torch.kernels.spmv.ops import build_tiles, spmv
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 128, 4, 64, generator=g, dtype=torch.float32).to(torch.bfloat16)
+    kv = torch.randn(2, 128, 2, 64, generator=g).to(torch.bfloat16)
+    table, ids = torch.randn(50, 8, generator=g), torch.randint(0, 50, (30,), generator=g, dtype=torch.int32)
+    segs = torch.sort(torch.randint(0, 7, (30,), generator=g, dtype=torch.int32)).values
+    cands, queries = torch.randn(700, 8, generator=g), torch.randn(3, 8, generator=g)
+    src = torch.randint(0, 900, (5000,), generator=g, dtype=torch.int32)
+    dst = torch.randint(0, 900, (5000,), generator=g, dtype=torch.int32)
+    contrib = torch.rand(900, generator=g)
+
+    def on(dev):
+        def t(x):
+            return x.to(dev)
+
+        tables = build_tiles(src.to(cuda if dev == "meta" else dev), dst.to(cuda if dev == "meta" else dev), 900)
+        return [
+            flash_attention_gqa(t(q), t(kv), t(kv), block_kv=64),
+            embedding_bag(t(table), t(ids), t(segs), 9),
+            count_into(t(src), torch.zeros(900, dtype=torch.int32, device=dev)),
+            spmv(tables, t(contrib)),
+            *score_topk(t(queries), t(cands), 16),
+        ]
+
+    for card, cpu, meta in zip(on(cuda), on("cpu"), on("meta")):
+        assert meta.device.type == "meta" and card.device.type == "cuda"
+        assert (meta.shape, meta.dtype) == (card.shape, card.dtype) == (cpu.shape, cpu.dtype)
+
+
+def test_run_cell_with_the_local_mesh_on_card(cuda):
+    """The dry-run on ``make_local_mesh()`` (1 × 1 over the card): every
+    leaf is whole on the one chip, and the full depth's FLOPs equal the
+    trip-scaled ones."""
+    from repro_torch.launch.dryrun import full_depth, run_cell, scaled_totals
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh()
+    assert mesh.shape == {"data": torch.cuda.device_count(), "model": 1}
+    rec = run_cell("tinyllama-1.1b", "prefill_32k", "local", analysis=True)
+    mem = rec["full"]["memory"]
+    assert rec["chips"] == mesh.size and rec["mesh"] == "local"
+    if mesh.size == 1:
+        assert mem["argument_bytes"] == mem["argument_bytes_total"] == 1_100_048_384 * 4 + 32 * 32768 * 4
+    n = full_depth("tinyllama-1.1b", "prefill_32k")
+    assert scaled_totals(rec, n)["flop_counter_flops_scaled"] == rec["full"]["flop_counter_flops"] > 0

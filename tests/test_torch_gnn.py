@@ -25,7 +25,7 @@ from repro.models.gnn import graphcast as jgraphcast  # noqa: E402
 from repro.models.gnn import pna as jpna  # noqa: E402
 from repro.models.gnn import schnet as jschnet  # noqa: E402
 from repro_torch._tree import tree_leaves, tree_map, tree_paths  # noqa: E402
-from repro_torch.configs import PORTED_ARCHS, get_arch  # noqa: E402
+from repro_torch.configs import ASSIGNED_ARCHS, get_arch  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models.gnn import common, graphcast, pna, schnet  # noqa: E402
 from repro_torch.models.gnn.common import params_tree  # noqa: E402
@@ -446,10 +446,9 @@ def test_configs_match_jax_field_for_field(arch):
 
 def test_registry_names_the_gnn_archs():
     for arch in GNN_ARCHS:
-        assert arch in PORTED_ARCHS
+        assert arch in ASSIGNED_ARCHS
         assert get_arch(arch).FAMILY == "gnn"
-    with pytest.raises(KeyError, match="not ported"):
-        get_arch("paper-graph-engine")
+    assert get_arch("paper-graph-engine").FAMILY == "graph"
 
 
 def test_tree_functions_take_lists_in_jax_order():

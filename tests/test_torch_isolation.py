@@ -37,6 +37,9 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert len(walked) >= 20  # every module was walked
     assert "repro_torch.ft.fault_tolerance" in walked
     assert "repro_torch.models.gnn.graphcast" in walked and "repro_torch.configs.schnet" in walked
+    for name in ("repro_torch.launch.dryrun", "repro_torch.launch.mesh", "repro_torch.sharding.rules",
+                 "repro_torch.sharding.context", "repro_torch.configs.paper_graph_engine"):
+        assert name in walked
 
 
 def test_entry_points_refuse_cpu_without_explicit_device(monkeypatch):
