@@ -18,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.descriptors import BFS_TOP_DOWN
 from ..graph.structure import Graph, GraphStats
 from .common import EdgeArrays, compact_frontier, member_mask_from_slots, merge_ranges
@@ -121,7 +122,7 @@ class BFSExecutor:
 
     def __post_init__(self):
         self._ea = EdgeArrays.from_graph(self.graph)
-        self._out_deg_host = self._ea.out_deg.cpu().numpy()
+        self._out_deg_host = tracing.host_read(self._ea.out_deg).numpy()
 
     # -- protocol ------------------------------------------------------
     def graph_stats(self) -> GraphStats:
@@ -154,7 +155,7 @@ class BFSExecutor:
     def frontier(self) -> tuple[int, np.ndarray | None, float]:
         fl = self.frontier_vertices()
         degrees = self._out_deg_host[fl] if fl.size else np.zeros(0, np.int64)
-        unvisited = self.graph.stats.v_reach - float(self._visited.sum())
+        unvisited = self.graph.stats.v_reach - tracing.host_read(self._visited.sum(), float)
         return int(fl.size), degrees, max(unvisited, 0.0)
 
     def frontier_vertices(self) -> np.ndarray:
@@ -163,7 +164,7 @@ class BFSExecutor:
         to pick the domain this iteration's mass touches most."""
         if self._frontier_host is None:
             n = self._n_frontier
-            self._frontier_host = self._frontier_list[:n].cpu().numpy()
+            self._frontier_host = tracing.host_read(self._frontier_list[:n]).numpy()
         return self._frontier_host
 
     def run_packages(self, package_ids, packages, t: int, parallel: bool) -> None:
@@ -185,7 +186,7 @@ class BFSExecutor:
                 hi,
                 num_vertices=self._ea.num_vertices,
             )
-            self._edges += float(edges)
+            self._edges += tracing.host_read(edges, float)
             self._covered += hi - lo
         # the scheduler hands each package exactly once per iteration; once
         # the slot ranges cover the whole frontier, the iteration commits
@@ -205,7 +206,7 @@ class BFSExecutor:
             self._depth,
             num_vertices=self._ea.num_vertices,
         )
-        self._n_frontier = int(n_frontier)
+        self._n_frontier = tracing.host_read(n_frontier, int)
         self._next = torch.zeros_like(self._next)
         self._depth += 1
         self._covered = 0
@@ -217,7 +218,7 @@ class BFSExecutor:
         return self._edges
 
     def result(self) -> np.ndarray:
-        return self._level.cpu().numpy()
+        return tracing.host_read(self._level).numpy()
 
     # -- execution-backend hooks (core.backends.CudaBackend) -------------
     def out_edges(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -306,7 +307,7 @@ class DirectionOptimizedBFSExecutor(BFSExecutor):
                 num_vertices=self._ea.num_vertices,
             )
             self._next = self._next | found
-            self._edges += float(edges)
+            self._edges += tracing.host_read(edges, float)
             self._covered = self._n_frontier
             self.end_iteration()
         else:

@@ -18,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.descriptors import DEGREE_COUNT
 from ..graph.structure import Graph, GraphStats
 
@@ -97,7 +98,7 @@ class DegreeCountExecutor:
         return self._edges
 
     def result(self) -> np.ndarray:
-        return self._counters.cpu().numpy()
+        return tracing.host_read(self._counters).numpy()
 
     # -- execution-backend hooks (core.backends.CudaBackend) -------------
     def edge_endpoints(self) -> tuple[torch.Tensor, torch.Tensor]:

@@ -21,6 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.descriptors import PR_PULL, PR_PUSH
 from ..graph.structure import Graph, GraphStats
 from .common import EdgeArrays, merge_ranges
@@ -106,9 +107,9 @@ class PageRankExecutor:
             raise ValueError(self.mode)
         self.desc = PR_PULL if self.mode == "pull" else PR_PUSH
         self._ea = EdgeArrays.from_graph(self.graph)
-        self._deg_host = (
+        self._deg_host = tracing.host_read(
             self.graph.in_degrees() if self.mode == "pull" else self._ea.out_deg
-        ).cpu().numpy()
+        ).numpy()
         # kernel-lowering opt-in for core.backends.CudaBackend (the JAX
         # package names it ``pallas_lowering``): pull is an owner-computes
         # SpMV; push's unsorted scatter has no kernel lowering
@@ -150,7 +151,7 @@ class PageRankExecutor:
                 e1, e2, self._contrib, self._acc, lo, hi,
                 num_vertices=self._ea.num_vertices,
             )
-            self._edges += float(edges)
+            self._edges += tracing.host_read(edges, float)
             self._covered += hi - lo
         if self._covered >= self._ea.num_vertices:
             self._end_iteration()
@@ -160,7 +161,7 @@ class PageRankExecutor:
             self._acc, self._dangling, self.damping,
             num_vertices=self._ea.num_vertices,
         )
-        delta = float((new_rank - self._rank).abs().sum())
+        delta = tracing.host_read((new_rank - self._rank).abs().sum(), float)
         self._rank = new_rank
         self._acc = torch.zeros_like(self._acc)
         self._contrib, self._dangling = _prepare_contrib(
@@ -175,7 +176,7 @@ class PageRankExecutor:
         return self._edges
 
     def result(self) -> np.ndarray:
-        return self._rank.cpu().numpy()
+        return tracing.host_read(self._rank).numpy()
 
     # -- execution-backend hooks (core.backends.CudaBackend, pull mode) --
     @property

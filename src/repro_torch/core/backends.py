@@ -38,6 +38,7 @@ from typing import TYPE_CHECKING, Any, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from . import tracing
 from ..kernels.spmv.spmv import DST_TILE
 
 if TYPE_CHECKING:  # pragma: no cover - annotation-only imports (no cycles)
@@ -45,8 +46,10 @@ if TYPE_CHECKING:  # pragma: no cover - annotation-only imports (no cycles)
     from .scheduler import ScheduleStep
     from .session import QueryExecutor
 
-# plans memoized per backend; small because at most one prep is live per
-# executor at a time — the cap only bounds pathological executor churn
+# plans memoized per backend, oldest evicted first. At most one prep is live
+# per executor, but an engine loop that makes a new executor for every query
+# fills the memo to this cap, and each plan keeps its executor, with the
+# executor's device arrays, alive until it is evicted
 _PLAN_CACHE_CAP = 256
 
 
@@ -113,8 +116,8 @@ def _sync_if_cuda(executor: "QueryExecutor") -> None:
     ``jax.block_until_ready``) when its graph lives on the card."""
     g = getattr(executor, "graph", None)
     dev = getattr(g, "device", None)
-    if dev is not None and dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    if dev is not None:
+        tracing.host_read(dev)
 
 
 class _PlanMemo:
@@ -124,8 +127,9 @@ class _PlanMemo:
     plans, so a key can never be reused while its entry is alive. ``shard``
     joins the key so a session whose placement drifts across domains gets
     one plan per shard it executes against, not a single clobbered slot.
-    Evicts FIFO past the cap — at most one prep is live per executor, so
-    the cap is never reached by a well-behaved engine loop."""
+    Evicts FIFO past the cap. At most one prep is live per executor, but a
+    loop that makes new executors (one a query) reaches the cap, and the
+    memo then holds the last 256 plans' executors alive."""
 
     def __init__(self) -> None:
         self._plans: dict[tuple[int, int, int], DevicePlan] = {}
@@ -305,7 +309,8 @@ class CudaBackend:
             return cached.tables
         from ..kernels.spmv.ops import build_tiles
 
-        tables = build_tiles(src, dst, num_vertices)
+        with tracing.span("backend.stage"):
+            tables = build_tiles(src, dst, num_vertices)
         self._graph_tables[key] = _CudaHandle(kind="tables", tables=tables)
         return tables
 
@@ -318,8 +323,7 @@ class CudaBackend:
             (handle.num_vertices,), dtype=torch.float32, device=tables.src.device
         )
         spmv_tiles(tables, contrib, 0, 1)
-        if contrib.is_cuda:
-            torch.cuda.synchronize(contrib.device)
+        tracing.host_read(contrib.device)
 
     def prepare(
         self, executor: "QueryExecutor", prep: "PreparedIteration", shard: Any = None
@@ -330,6 +334,14 @@ class CudaBackend:
         plan = self._memo.get(executor, prep, shard)
         if plan is not None:
             return plan
+        with tracing.span("backend.prepare"):
+            return self._stage_plan(executor, prep, shard)
+
+    def _stage_plan(
+        self, executor: "QueryExecutor", prep: "PreparedIteration", shard: Any
+    ) -> DevicePlan:
+        """A new plan for :meth:`prepare`: the shared handle, or a staged
+        and warmed one."""
         from .stealing import graph_identity
 
         gkey = graph_identity(executor)
@@ -359,7 +371,7 @@ class CudaBackend:
                 kind="pr_pull",
                 tables=tables,
                 num_vertices=nv,
-                edge_prefix=tables.row_ptr[: nv + 1].cpu().numpy(),
+                edge_prefix=tracing.host_read(tables.row_ptr[: nv + 1]).numpy(),
             )
             if shard is not None:
                 # the shard's target vertices [v_lo, v_hi) cover dst tiles
@@ -381,7 +393,8 @@ class CudaBackend:
             c = int(executor.num_counters)
             # endpoint ids in edge order, reduced mod the counter array,
             # kept on the device as one [2, E] table
-            ids = (torch.stack([src, dst]) % c).to(torch.int32)
+            with tracing.span("backend.stage"):
+                ids = (torch.stack([src, dst]) % c).to(torch.int32)
             handle = _CudaHandle(kind="degree_count", num_vertices=c, ids=ids)
             # build and load the kernel outside any measured window
             warm = torch.zeros((c,), dtype=torch.int32, device=ids.device)
@@ -452,7 +465,8 @@ class CudaBackend:
             end = min(base + flat.shape[0], h.num_vertices)
             agg[base:end] = masked[: end - base]
             edges = float(h.edge_prefix[hi] - h.edge_prefix[lo])
-            ex.apply_pull_aggregate(agg, lo, hi, edges)
+            with tracing.span("executor.apply"):
+                ex.apply_pull_aggregate(agg, lo, hi, edges)
 
     def _execute_bfs(self, plan: DevicePlan, step: "ScheduleStep") -> None:
         h = plan.handle
@@ -466,7 +480,8 @@ class CudaBackend:
             contrib[members.to(torch.int64)] = 1.0
             # members' out-neighbours may land in any target tile → full grid
             counts = self._spmv_range(h, contrib, 0, n_tiles, step.workers)
-            ex.apply_expansion(counts[: h.num_vertices], lo, hi)
+            with tracing.span("executor.apply"):
+                ex.apply_expansion(counts[: h.num_vertices], lo, hi)
 
     def _execute_degree_count(
         self, plan: DevicePlan, step: "ScheduleStep"
@@ -481,24 +496,28 @@ class CudaBackend:
             total = torch.zeros((h.num_vertices,), dtype=torch.int32, device=h.ids.device)
             for a, b in self._grid_slices(lo, hi, step.workers):
                 count_into(h.ids[:, a:b], total)
-            ex.apply_counts(total, lo, hi)
+            with tracing.span("executor.apply"):
+                ex.apply_counts(total, lo, hi)
 
     def execute(
         self, plan: DevicePlan, step: "ScheduleStep", modeled_ns: float = 0.0
     ) -> float:
-        """Run one step's batch through the lowered kernel; returns real ns."""
-        t0 = time.perf_counter_ns()
-        kind = plan.handle.kind
-        if kind == "pr_pull":
-            self._execute_pr_pull(plan, step)
-        elif kind == "bfs":
-            self._execute_bfs(plan, step)
-        elif kind == "degree_count":
-            self._execute_degree_count(plan, step)
-        else:
-            _run_inline(plan, step)
-        _sync_if_cuda(plan.executor)
-        return float(time.perf_counter_ns() - t0)
+        """Run one step's batch through the lowered kernel; returns real ns.
+        Its span's self time is the host's dispatch: the launches and the
+        torch operations around them."""
+        with tracing.span("backend.execute"):
+            t0 = time.perf_counter_ns()
+            kind = plan.handle.kind
+            if kind == "pr_pull":
+                self._execute_pr_pull(plan, step)
+            elif kind == "bfs":
+                self._execute_bfs(plan, step)
+            elif kind == "degree_count":
+                self._execute_degree_count(plan, step)
+            else:
+                _run_inline(plan, step)
+            _sync_if_cuda(plan.executor)
+            return float(time.perf_counter_ns() - t0)
 
 
 _BACKENDS = {

@@ -48,6 +48,7 @@ from typing import TYPE_CHECKING, Any, Callable, Protocol, Sequence
 
 import numpy as np
 
+from . import tracing
 from .autotuner import PreparedIteration, prepare_iteration
 from .backends import ExecutionBackend, resolve_backend
 from .bounds import ThreadBounds
@@ -142,6 +143,10 @@ class QueryRecord:
     submitted_ns: float = 0.0     # modeled clock: query entered the system
     started_ns: float = 0.0       # modeled clock: first iteration began
     finished_ns: float = 0.0      # modeled clock: query completed
+    # host wall clock (perf_counter_ns) of run_sessions: the engine began
+    # making the query's executor, and the engine saw the query done
+    submitted_wall_ns: int = 0
+    finished_wall_ns: int = 0
     # packages of this query executed by thief sessions (work-stealing)
     stolen_packages: int = 0
     # packages of this query executed inside a fused same-graph gang (gang
@@ -625,6 +630,8 @@ class _SessionState:
     sid: int
     priority: int = 0
     next_query: int = 0
+    # (session, query) of the current query: the key of its trace spans
+    key: tuple[int, int] | None = None
     executor: QueryExecutor | None = None
     record: QueryRecord | None = None
     prep: PreparedIteration | None = None
@@ -813,6 +820,7 @@ class MultiQueryEngine:
         unvisited: float,
         partition: GraphPartition | None = None,
         frontier_vertices: np.ndarray | None = None,
+        key: tuple[int, int] | None = None,
     ) -> PreparedIteration:
         """Preparation step; topology-centric algorithms prepare once (§4.5).
 
@@ -823,21 +831,22 @@ class MultiQueryEngine:
         (+ optional ``frontier_vertices``) makes preparation the placement
         decision point too: the plan carries the frontier's per-domain
         degree mass, computed from the same sampled statistics that drive
-        packaging."""
+        packaging. ``key`` is the query's trace key."""
         if prev is not None and executor.desc.kind != "data_driven":
             return prev
-        return prepare_iteration(
-            executor.desc,
-            self.hw,
-            executor.graph_stats(),
-            fsize,
-            frontier_degrees=fdeg,
-            unvisited=unvisited,
-            p=self.pool.capacity,
-            feedback=self.feedback if self._width_fb_on else None,
-            partition=partition,
-            frontier_vertices=frontier_vertices,
-        )
+        with tracing.span("sched.prepare", key):
+            return prepare_iteration(
+                executor.desc,
+                self.hw,
+                executor.graph_stats(),
+                fsize,
+                frontier_degrees=fdeg,
+                unvisited=unvisited,
+                p=self.pool.capacity,
+                feedback=self.feedback if self._width_fb_on else None,
+                partition=partition,
+                frontier_vertices=frontier_vertices,
+            )
 
     def _execute_step(
         self,
@@ -1065,7 +1074,27 @@ class MultiQueryEngine:
         members pinned to different snapshots. ``dynamic=False`` (the
         default) performs zero epoch calls and keeps every scheduling
         decision byte-identical to the static-graph engine (the fig10–21
-        modeled rows are unchanged)."""
+        modeled rows are unchanged).
+
+        With tracing on (:mod:`~.tracing`) the run is one ``engine.round``
+        span."""
+        with tracing.span("engine.round"):
+            return self._run_sessions(
+                make_executor,
+                sessions=sessions,
+                queries_per_session=queries_per_session,
+                config=config,
+            )
+
+    def _run_sessions(
+        self,
+        make_executor: Callable[[int, int], QueryExecutor],
+        *,
+        sessions: int,
+        queries_per_session: int,
+        config: EngineConfig | None,
+    ) -> EngineReport:
+        """The body of :meth:`run_sessions`."""
         cfg = config if config is not None else EngineConfig()
         priorities = cfg.priorities
         arrivals = cfg.arrivals
@@ -1309,8 +1338,11 @@ class MultiQueryEngine:
             """Move the session to its next query; False → session exhausted."""
             if st.next_query >= queries_per_session:
                 return False
-            st.executor = make_executor(st.sid, st.next_query)
-            st.executor.start()
+            submitted_wall_ns = time.perf_counter_ns()
+            st.key = (st.sid, st.next_query)
+            with tracing.span("executor.start", st.key):
+                st.executor = make_executor(st.sid, st.next_query)
+                st.executor.start()
             # stable dataset identity (not id()): two sessions that loaded
             # the same graph into distinct objects still group for steal
             # locality and gang fusion
@@ -1320,6 +1352,7 @@ class MultiQueryEngine:
                 query=st.next_query,
                 algorithm=st.executor.desc.name,
                 priority=st.priority,
+                submitted_wall_ns=submitted_wall_ns,
             )
             if dynamic:
                 # pin stamp: the snapshot this query starts on is the one it
@@ -1341,6 +1374,7 @@ class MultiQueryEngine:
             if st.executor is not None and st.record is not None:
                 st.record.edges = float(st.executor.edges_traversed())
                 st.record.finished_ns = t
+                st.record.finished_wall_ns = time.perf_counter_ns()
             st.executor = None
 
         def _place(st: _SessionState) -> None:
@@ -1409,6 +1443,11 @@ class MultiQueryEngine:
             floor, or its backlog vanished) without shadowing the next one."""
             if registry is None or not len(registry):
                 return False
+            with tracing.span("sched.steal"):
+                return _steal(thief, t)
+
+        def _steal(thief: _SessionState, t: float) -> bool:
+            """The body of ``_try_steal`` past its empty-registry check."""
             tried: set = set()
             while True:
                 entry = registry.pick_victim(
@@ -1565,6 +1604,16 @@ class MultiQueryEngine:
             """Begin the session's own iteration run (solo path, and — with
             ``order``/``initial_grant=False`` — a de-fused member's residual
             run)."""
+            with tracing.span("sched.package", st.key):
+                _begin_run(st, bounds, order, initial_grant)
+
+        def _begin_run(
+            st: _SessionState,
+            bounds: ThreadBounds,
+            order: np.ndarray | None,
+            initial_grant: bool,
+        ) -> None:
+            """The body of ``_install_run``."""
             scheduler = PackageScheduler(
                 self.pool,
                 seq_package_limit=self.seq_package_limit,
@@ -1987,7 +2036,8 @@ class MultiQueryEngine:
                 if kind == EV_FUSE:
                     # the gang-formation rendezvous for one (graph, algo) key
                     # closed: fuse or release the staged sessions
-                    _flush_fusion(st, t)
+                    with tracing.span("sched.fuse"):
+                        _flush_fusion(st, t)
                     continue
 
                 if kind == EV_ARRIVE:
@@ -2064,7 +2114,8 @@ class MultiQueryEngine:
 
                 # EV_STEP on a fusion driver: advance the fused gang
                 if st.fusion is not None:
-                    _fused_step(st, t)
+                    with tracing.span("sched.fuse"):
+                        _fused_step(st, t)
                     continue
 
                 # EV_STEP: advance one session by one schedule step
@@ -2103,13 +2154,16 @@ class MultiQueryEngine:
                             and st.next_query < queries_per_session
                             and self.pool.available >= 2
                         )
-                        if ex.finished():
+                        with tracing.span("executor.finished", st.key):
+                            done = ex.finished()
+                        if done:
                             _finish_query(st, t)
                             if can_mid_steal and _try_steal(st, t):
                                 st = None
                                 break
                             continue
-                        fsize, fdeg, unvisited = ex.frontier()
+                        with tracing.span("executor.frontier", st.key):
+                            fsize, fdeg, unvisited = ex.frontier()
                         if fsize <= 0:
                             _finish_query(st, t)
                             if can_mid_steal and _try_steal(st, t):
@@ -2202,7 +2256,13 @@ class MultiQueryEngine:
                             cached = (
                                 ver,
                                 self._prepare(
-                                    ex, None, fsize, fdeg, unvisited, partition=part
+                                    ex,
+                                    None,
+                                    fsize,
+                                    fdeg,
+                                    unvisited,
+                                    partition=part,
+                                    key=st.key,
                                 ),
                             )
                             prep_cache[ck] = cached
@@ -2216,9 +2276,11 @@ class MultiQueryEngine:
                             unvisited,
                             partition=part,
                             frontier_vertices=fvert,
+                            key=st.key,
                         )
                     _place(st)
-                    bounds = self._decide(st.prep)
+                    with tracing.span("sched.bounds", st.key):
+                        bounds = self._decide(st.prep)
                     if (
                         fusing is not None
                         and bounds.parallel
@@ -2249,7 +2311,8 @@ class MultiQueryEngine:
                         continue
                     _install_run(st, bounds)
 
-                step = st.srun.next_step()
+                with tracing.span("sched.package", st.key):
+                    step = st.srun.next_step()
                 if step is None:
                     # all packages dispatched: release the grant right away —
                     # donated batches still executing on thieves run on the

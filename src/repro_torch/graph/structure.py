@@ -199,44 +199,53 @@ def build_graph(
     Statistics are collected during this construction pass (paper §4.1.2):
     out/in degree mean & max, and |V_reach| (vertices that are neither
     isolated nor lacking an incoming edge — the paper's approximation).
+    With tracing on (``core.tracing``) the build is a ``graph.build`` span,
+    with a ``graph.csr`` span for each CSR sort and ``graph.upload`` for
+    the copy to the device.
     """
-    dev = resolve_device(device)
-    src = np.asarray(src, dtype=np.int64)
-    dst = np.asarray(dst, dtype=np.int64)
-    if src.ndim != 1 or src.shape != dst.shape:
-        raise ValueError("src/dst must be 1-D arrays of equal length")
-    if src.size and (src.min() < 0 or src.max() >= num_vertices):
-        raise ValueError("src out of range")
-    if dst.size and (dst.min() < 0 or dst.max() >= num_vertices):
-        raise ValueError("dst out of range")
-    if dedup and src.size:
-        key = src * num_vertices + dst
-        _, keep = np.unique(key, return_index=True)
-        src, dst = src[keep], dst[keep]
+    from ..core import tracing  # here: the core package imports this module
 
-    indptr, indices, src_sorted = _csr_from_coo_np(src, dst, num_vertices)
-    indptr_in, indices_in, _ = _csr_from_coo_np(dst, src, num_vertices)
+    with tracing.span("graph.build"):
+        dev = resolve_device(device)
+        src = np.asarray(src, dtype=np.int64)
+        dst = np.asarray(dst, dtype=np.int64)
+        if src.ndim != 1 or src.shape != dst.shape:
+            raise ValueError("src/dst must be 1-D arrays of equal length")
+        if src.size and (src.min() < 0 or src.max() >= num_vertices):
+            raise ValueError("src out of range")
+        if dst.size and (dst.min() < 0 or dst.max() >= num_vertices):
+            raise ValueError("dst out of range")
+        if dedup and src.size:
+            key = src * num_vertices + dst
+            _, keep = np.unique(key, return_index=True)
+            src, dst = src[keep], dst[keep]
 
-    out_deg = np.diff(indptr)
-    in_deg = np.diff(indptr_in)
-    has_in = in_deg > 0
-    isolated = (out_deg == 0) & (in_deg == 0)
-    v_reach = int(np.count_nonzero(has_in & ~isolated))
+        with tracing.span("graph.csr"):
+            indptr, indices, src_sorted = _csr_from_coo_np(src, dst, num_vertices)
+        with tracing.span("graph.csr"):
+            indptr_in, indices_in, _ = _csr_from_coo_np(dst, src, num_vertices)
 
-    stats = dict(
-        num_vertices=int(num_vertices),
-        num_edges=int(src.size),
-        v_reach=max(v_reach, 1),
-        deg_out_mean=float(out_deg.mean()) if num_vertices else 0.0,
-        deg_out_max=int(out_deg.max()) if num_vertices else 0,
-        deg_in_mean=float(in_deg.mean()) if num_vertices else 0.0,
-        deg_in_max=int(in_deg.max()) if num_vertices else 0,
-    )
-    # dst in out-edge order is the out-CSR's index array (already sorted by src)
-    return graph_from_arrays(
-        indptr, indices, indptr_in, indices_in, src_sorted, indices, stats,
-        name=name, surrogate=surrogate, device=dev,
-    )
+        out_deg = np.diff(indptr)
+        in_deg = np.diff(indptr_in)
+        has_in = in_deg > 0
+        isolated = (out_deg == 0) & (in_deg == 0)
+        v_reach = int(np.count_nonzero(has_in & ~isolated))
+
+        stats = dict(
+            num_vertices=int(num_vertices),
+            num_edges=int(src.size),
+            v_reach=max(v_reach, 1),
+            deg_out_mean=float(out_deg.mean()) if num_vertices else 0.0,
+            deg_out_max=int(out_deg.max()) if num_vertices else 0,
+            deg_in_mean=float(in_deg.mean()) if num_vertices else 0.0,
+            deg_in_max=int(in_deg.max()) if num_vertices else 0,
+        )
+        # dst in out-edge order is the out-CSR's index array (already sorted by src)
+        with tracing.span("graph.upload"):
+            return graph_from_arrays(
+                indptr, indices, indptr_in, indices_in, src_sorted, indices, stats,
+                name=name, surrogate=surrogate, device=dev,
+            )
 
 
 def pad_edges(src: torch.Tensor, dst: torch.Tensor, multiple: int, fill: int):

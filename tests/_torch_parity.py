@@ -36,9 +36,19 @@ def hubs(degrees) -> np.ndarray:
     return np.argsort(-np.asarray(degrees))
 
 
+# the port's QueryRecord host wall stamps: a clock, equal in no two runs
+WALL_FIELDS = ("submitted_wall_ns", "finished_wall_ns")
+
+
+def record_fields(r) -> dict:
+    """Every field of a query record but its host wall stamps."""
+    return {k: v for k, v in dataclasses.asdict(r).items() if k not in WALL_FIELDS}
+
+
 def records(report) -> list[dict]:
-    """Every field of every query record, decision traces included."""
-    return [dataclasses.asdict(r) for r in report.records]
+    """Every field of every query record, decision traces included, but
+    the host wall stamps."""
+    return [record_fields(r) for r in report.records]
 
 
 def report_numbers(report) -> tuple:
@@ -53,12 +63,14 @@ def report_numbers(report) -> tuple:
 
 def plain(x):
     """``x`` as plain Python values that compare equal across packages:
-    dataclasses as dicts of their fields, numpy, JAX and torch arrays as
+    dataclasses as dicts of their fields (a query record's host wall stamps
+    left out), numpy, JAX and torch arrays as
     nested lists, numpy scalars as Python numbers, containers element by
     element. A float NaN becomes the string ``"nan"`` so that equal NaNs
     compare equal."""
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
-        return {f.name: plain(getattr(x, f.name)) for f in dataclasses.fields(x)}
+        return {f.name: plain(getattr(x, f.name)) for f in dataclasses.fields(x)
+                if f.name not in WALL_FIELDS}
     if isinstance(x, dict):
         return {k: plain(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
