@@ -16,11 +16,15 @@ of three substrates:
 * :class:`CudaBackend` — lowers a package batch to the hand-written SpMV /
   degree-count CUDA kernels (``kernels/spmv``, ``kernels/degree_count``;
   their plain PyTorch versions when the executor's tensors lie on the CPU).
-  Gang width maps to grid parallelism: the batch's tile range is cut into
-  ``step.workers`` contiguous grid slices — one launch per gang member, in
-  order. Package ranges are widened to tile boundaries and the out-of-range
-  lanes masked off before the result is applied (unpadding), so results
-  stay exact. Algorithms without a kernel lowering (PR-push,
+  Each merged package range is one launch, at any gang width: on one
+  stream, launches run one after another, and within one launch the
+  kernel's blocks already spread over the SMs, so a launch per gang member
+  would add host work and no parallelism. The gang width sets the modeled
+  cost, Algorithm 1's bounds, packaging and stealing, and its measured
+  nanoseconds flow into the feedback tables; it does not set the launch
+  count. Package ranges are widened to tile boundaries and the
+  out-of-range lanes masked off before the result is applied (unpadding),
+  so results stay exact. Algorithms without a kernel lowering (PR-push,
   direction-optimized BFS) run the inline path.
 
 The protocol splits *preparation* from *execution* deliberately:
@@ -244,8 +248,9 @@ class _CudaHandle:
 class CudaBackend:
     """Dispatch package batches onto the hand-written CUDA graph kernels.
 
-    Lowerings (see the module docstring for the width → grid mapping and
-    the padding/unpadding contract):
+    Lowerings, each one kernel launch per merged package range whatever
+    the step's gang width (see the module docstring for why, and for the
+    padding/unpadding contract):
 
     * ``pagerank_pull`` — a package batch is a contiguous range of *target*
       vertices; the ragged dst-tile layout built by
@@ -407,17 +412,6 @@ class CudaBackend:
         return self._memo.put(DevicePlan(executor, prep, handle, shard=shard))
 
     # ---------------------------------------------------------- execution
-    def _grid_slices(self, t0: int, t1: int, workers: int) -> list[tuple[int, int]]:
-        """Cut tile range [t0, t1) into ≤ ``workers`` contiguous grid slices.
-
-        Each slice is one gang member's grid: one kernel launch, issued in
-        order on the stream, so measured time reflects the serialized
-        work."""
-        n = t1 - t0
-        w = max(min(int(workers), n), 1)
-        bounds = np.linspace(t0, t1, w + 1).round().astype(int)
-        return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
-
     def _tile_slab(self, handle: _CudaHandle, a: int, b: int):
         """(tables, a', b') for absolute dst tiles [a, b): the shard-local
         slab when the range lies inside the plan's shard (the common case
@@ -429,18 +423,13 @@ class CudaBackend:
             return handle.slab, a - lo, b - lo
         return handle.tables, a, b
 
-    def _spmv_range(
-        self, handle: _CudaHandle, contrib, t0: int, t1: int, workers: int
-    ):
-        """Aggregate dst tiles [t0, t1) at gang width ``workers``; returns
-        the flat [(t1-t0)*tile] per-target sums."""
+    def _spmv_range(self, handle: _CudaHandle, contrib, t0: int, t1: int):
+        """Aggregate dst tiles [t0, t1) in one launch; returns the flat
+        [(t1-t0)*tile] per-target sums."""
         from ..kernels.spmv.ops import spmv_tiles
 
-        outs = []
-        for a, b in self._grid_slices(t0, t1, workers):
-            tables, ra, rb = self._tile_slab(handle, a, b)
-            outs.append(spmv_tiles(tables, contrib, ra, rb).reshape(-1))
-        return torch.cat(outs) if len(outs) > 1 else outs[0]
+        tables, a, b = self._tile_slab(handle, t0, t1)
+        return spmv_tiles(tables, contrib, a, b).reshape(-1)
 
     def _ranges(self, plan: DevicePlan, step: "ScheduleStep") -> list[tuple[int, int]]:
         """The batch's contiguous frontier-slot ranges."""
@@ -456,7 +445,7 @@ class CudaBackend:
         tile = DST_TILE
         for lo, hi in self._ranges(plan, step):
             t0, t1 = lo // tile, -(-hi // tile)
-            flat = self._spmv_range(h, ex.contrib, t0, t1, step.workers)
+            flat = self._spmv_range(h, ex.contrib, t0, t1)
             # unpad: mask lanes outside [lo, hi) before applying the partial
             base = t0 * tile
             ids = base + torch.arange(flat.shape[0], device=flat.device)
@@ -479,7 +468,7 @@ class CudaBackend:
             )
             contrib[members.to(torch.int64)] = 1.0
             # members' out-neighbours may land in any target tile → full grid
-            counts = self._spmv_range(h, contrib, 0, n_tiles, step.workers)
+            counts = self._spmv_range(h, contrib, 0, n_tiles)
             with tracing.span("executor.apply"):
                 ex.apply_expansion(counts[: h.num_vertices], lo, hi)
 
@@ -491,11 +480,9 @@ class CudaBackend:
         h = plan.handle
         ex = plan.executor
         for lo, hi in self._ranges(plan, step):
-            # both endpoints of every edge in [lo, hi); each gang member's
-            # slice of the range adds into the same device counter tensor
+            # both endpoints of every edge in [lo, hi)
             total = torch.zeros((h.num_vertices,), dtype=torch.int32, device=h.ids.device)
-            for a, b in self._grid_slices(lo, hi, step.workers):
-                count_into(h.ids[:, a:b], total)
+            count_into(h.ids[:, lo:hi], total)
             with tracing.span("executor.apply"):
                 ex.apply_counts(total, lo, hi)
 

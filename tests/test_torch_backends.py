@@ -20,12 +20,13 @@ JAX. Already covered elsewhere, so not repeated here:
 - ``test_pallas_results_stable_across_gang_widths``:
   ``tests/test_torch_engine.py::test_cuda_backend_pr_stable_across_gang_widths``.
 """
+import dataclasses
 import time
 
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 import repro.core as jcore  # noqa: E402
 import repro_torch.algorithms as talg  # noqa: E402
@@ -179,6 +180,77 @@ def test_cuda_degree_count_matches_reference(graphs):
     jex = jalg.DegreeCountExecutor(graphs["jax"])
     _run_one(jcore, _engine(jcore, "modeled"), jex)
     assert np.array_equal(ex.result(), np.asarray(jex.result()))
+
+
+# ---------------- one launch per merged package range, at any gang width ----------------
+
+_LOWERING_MK = {
+    "pr_pull": lambda g, s: talg.PageRankExecutor(g, mode="pull", max_iters=3, tol=0),
+    "bfs": lambda g, s: talg.BFSExecutor(g, int(np.argsort(-g.out_degrees().numpy())[s % 4])),
+    "degree_count": lambda g, s: talg.DegreeCountExecutor(g),
+}
+
+
+def _forced_width_run(monkeypatch, g, kind, width, domains):
+    """Two sessions of ``kind`` through a ``CudaBackend`` that hands every
+    step to its lowering at gang width ``width``. Returns the results, and
+    for each lowered ``execute`` the kernel calls it made, its merged
+    package ranges, whether any call ran on the plan's shard slab and
+    whether the plan has one."""
+    import repro_torch.kernels.degree_count.ops as dc_ops
+    import repro_torch.kernels.spmv.ops as spmv_ops
+    from repro_torch.algorithms.common import merge_ranges
+
+    mod, name = (dc_ops, "count_into") if kind == "degree_count" else (spmv_ops, "spmv_tiles")
+    real, seen = getattr(mod, name), []
+
+    def counted(tables, *args):
+        seen.append(tables)
+        return real(tables, *args)
+
+    steps = []
+
+    class ForcedWidth(tcore.CudaBackend):
+        def execute(self, plan, step, modeled_ns=0.0):
+            step = dataclasses.replace(step, workers=width)
+            n0 = len(seen)
+            ns = super().execute(plan, step, modeled_ns)
+            slab = plan.handle.slab
+            steps.append((len(seen) - n0, len(merge_ranges(plan.prep.packages.bounds, step.batch)),
+                          any(t is slab for t in seen[n0:]), slab is not None))
+            return ns
+
+    made = []
+
+    def mk(s, q):
+        made.append(_LOWERING_MK[kind](g, s))
+        return made[-1]
+
+    eng = tcore.MultiQueryEngine(tcore.XEON_E5_2660V4, pool_capacity=16, policy="scheduler")
+    with monkeypatch.context() as m:
+        m.setattr(mod, name, counted)
+        eng.run_sessions(mk, sessions=2, queries_per_session=1,
+                         config=tcore.EngineConfig(steal=True, domains=domains, backend=ForcedWidth()))
+    assert eng.pool.available == eng.pool.capacity
+    return [ex.result() for ex in made], steps
+
+
+@pytest.mark.parametrize("width", [1, 4, 19, 56])
+@pytest.mark.parametrize("kind,domains", [("pr_pull", 1), ("bfs", 1), ("degree_count", 1), ("pr_pull", 2)])
+def test_cuda_backend_one_launch_per_merged_range(graphs, monkeypatch, kind, domains, width):
+    """Every merged package range of a step is one kernel call (``spmv_tiles``,
+    or ``count_into`` for degree counts), whatever the step's gang width, and
+    the answers equal width 1's to the bit; with two locality domains the
+    PR-pull ranges inside the plan's shard run on its slab."""
+    g = graphs["torch"]
+    got, steps = _forced_width_run(monkeypatch, g, kind, width, domains)
+    want, _ = _forced_width_run(monkeypatch, g, kind, 1, domains)
+    assert steps and all(calls == ranges for calls, ranges, _, _ in steps)
+    for a, b in zip(got, want):
+        assert torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+    if domains > 1:
+        assert all(has_slab for *_, has_slab in steps)
+        assert any(on_slab for _, _, on_slab, _ in steps)
 
 
 # ---------------- measured time reaches the feedback loop ----------------

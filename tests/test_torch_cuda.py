@@ -371,6 +371,46 @@ def test_cuda_backend_results_stable_across_gang_widths_on_card(cuda):
         np.testing.assert_allclose(ex.result(), solo.result(), rtol=1e-6)
 
 
+def test_cuda_backend_one_launch_per_merged_range_on_card(cuda):
+    """4 PageRank-pull and 4 BFS sessions on the card: every step launches
+    spmv once per merged package range, whatever its gang width, and a pool
+    of 1 and a pool of 56 give the same ranks and levels to the bit."""
+    from repro_torch.algorithms.common import merge_ranges
+
+    g = rmat_graph(12, seed=3, device=cuda)
+    hubs = np.argsort(-g.out_degrees().cpu().numpy())
+
+    def run(pool):
+        steps = []
+
+        class Counted(core.CudaBackend):
+            def execute(self, plan, step, modeled_ns=0.0):
+                n0 = spmv_rows_cuda.launches
+                ns = super().execute(plan, step, modeled_ns)
+                ranges = len(merge_ranges(plan.prep.packages.bounds, step.batch))
+                steps.append((spmv_rows_cuda.launches - n0, ranges, step.workers))
+                return ns
+
+        made = []
+
+        def mk(s, q):
+            made.append(alg.PageRankExecutor(g, mode="pull", max_iters=4, tol=0) if s < 4
+                        else alg.BFSExecutor(g, int(hubs[s])))
+            return made[-1]
+
+        eng = core.MultiQueryEngine(core.XEON_E5_2660V4, pool_capacity=pool, policy="scheduler")
+        eng.run_sessions(mk, sessions=8, queries_per_session=1,
+                         config=core.EngineConfig(steal=True, backend=Counted()))
+        assert eng.pool.available == eng.pool.capacity
+        assert steps and all(launches == ranges for launches, ranges, _ in steps)
+        return [torch.from_numpy(ex.result()) for ex in made], max(w for *_, w in steps)
+
+    narrow, w1 = run(1)
+    wide, w56 = run(56)
+    assert w1 == 1 and w56 > 1
+    assert all(torch.equal(a, b) for a, b in zip(narrow, wide))
+
+
 def _skew_mk(g):
     hubs = np.argsort(-g.out_degrees().cpu().numpy())
     return lambda s, q: (alg.PageRankExecutor(g, mode="pull", max_iters=6, tol=0) if s == 0

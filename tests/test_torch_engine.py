@@ -197,8 +197,9 @@ def test_cuda_backend_fig20_matches_oracles_and_modeled(graphs11, variant):
 
 
 def test_cuda_backend_pr_stable_across_gang_widths(graphs):
-    """Gang width → grid slices is a performance knob, not a semantic one:
-    a solo wide-gang query and a contended 4-session run give identical
+    """Gang width sets the modeled cost and the packaging, not the answer:
+    a solo wide-gang query and a contended 4-session run (other widths,
+    other merged package ranges, each range one kernel call) give identical
     PageRank ranks."""
     g = graphs["torch"]
     solo = tcore.MultiQueryEngine(tcore.XEON_E5_2660V4, policy="scheduler", backend="cuda")
