@@ -144,6 +144,9 @@ class BFSExecutor:
         self._depth = 1
         self._edges = 0.0
         self._covered = 0
+        # set once a backend has folded in the whole level's expansion
+        # (apply_expansion); the level's other slot ranges only account
+        self._level_expanded = False
         self._frontier_host: np.ndarray | None = np.array([self.source], dtype=np.int32)
         self._done = False
 
@@ -210,6 +213,7 @@ class BFSExecutor:
         self._next = torch.zeros_like(self._next)
         self._depth += 1
         self._covered = 0
+        self._level_expanded = False
         self._frontier_host = None
         if self._n_frontier == 0:
             self._done = True
@@ -231,12 +235,25 @@ class BFSExecutor:
         int32 tensor on the executor's device."""
         return self._frontier_list[lo : min(hi, self._n_frontier)]
 
+    def level_expanded(self) -> bool:
+        """Whether this level's next frontier is already folded in: the
+        level's remaining slot ranges need no expansion of their own."""
+        return self._level_expanded
+
     def apply_expansion(self, counts: torch.Tensor, lo: int, hi: int) -> None:
-        """Fold a backend-computed parent count [V] for frontier slots
-        [lo, hi) into the next-frontier mask — identical bookkeeping to
-        ``run_packages`` on that slot range (``counts > 0`` is the touched
-        set; edges = out-degrees of the expanded members)."""
+        """Fold a backend-computed parent count [V] of the *whole* current
+        frontier into the next-frontier mask (``counts > 0`` is the level's
+        touched set), then account for frontier slots [lo, hi) as
+        :meth:`account_range` does. Called once a level; the level's other
+        ranges go to :meth:`account_range` alone."""
         self._next = self._next | ((counts > 0) & ~self._visited)
+        self._level_expanded = True
+        self.account_range(lo, hi)
+
+    def account_range(self, lo: int, hi: int) -> None:
+        """The bookkeeping ``run_packages`` does for frontier slots [lo,
+        hi) (edges = out-degrees of the range's members), committing the
+        level once the ranges cover the whole frontier."""
         members = self.frontier_vertices()[lo:hi]
         if members.size:
             self._edges += float(self._out_deg_host[members].sum())

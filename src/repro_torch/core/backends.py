@@ -19,7 +19,10 @@ of three substrates:
   Each merged package range is one launch, at any gang width: on one
   stream, launches run one after another, and within one launch the
   kernel's blocks already spread over the SMs, so a launch per gang member
-  would add host work and no parallelism. The gang width sets the modeled
+  would add host work and no parallelism. BFS goes further: its sweep
+  reads every edge whatever the frontier, so a level's first range
+  expands the whole frontier in one launch and the level's other ranges
+  only do their bookkeeping. The gang width sets the modeled
   cost, Algorithm 1's bounds, packaging and stealing, and its measured
   nanoseconds flow into the feedback tables; it does not set the launch
   count. Package ranges are widened to tile boundaries and the
@@ -249,8 +252,8 @@ class CudaBackend:
     """Dispatch package batches onto the hand-written CUDA graph kernels.
 
     Lowerings, each one kernel launch per merged package range whatever
-    the step's gang width (see the module docstring for why, and for the
-    padding/unpadding contract):
+    the step's gang width (BFS: one per level; see the module docstring
+    for why, and for the padding/unpadding contract):
 
     * ``pagerank_pull`` — a package batch is a contiguous range of *target*
       vertices; the ragged dst-tile layout built by
@@ -259,10 +262,12 @@ class CudaBackend:
       the range are masked off before the partial is applied to the
       executor's accumulator.
     * ``bfs_top_down`` — frontier expansion *is* an SpMV over the boolean
-      semiring: contributions are the indicator of the batch's frontier
-      slots, the kernel counts per-target frontier parents over the
-      dst-tiled out-edge list, and ``counts > 0 & ~visited`` is the found
-      set.
+      semiring: contributions are the indicator of the whole frontier, the
+      kernel counts per-target frontier parents over the dst-tiled
+      out-edge list, and ``counts > 0 & ~visited`` is the level's found
+      set. The level's first range sweeps; every later range of the level
+      launches nothing (counters ``bfs.level_sweeps`` and
+      ``bfs.ranges_served``).
     * ``degree_count`` — a package batch is an edge range; its endpoint ids
       (kept on the device, reduced mod the counter-array size) are
       histogrammed by ``kernels/degree_count`` straight into one
@@ -462,13 +467,24 @@ class CudaBackend:
         ex = plan.executor
         n_tiles = h.tables.n_tiles
         for lo, hi in self._ranges(plan, step):
-            members = ex.frontier_slot_vertices(lo, hi)
+            if ex.level_expanded():
+                # an earlier range of this level swept for the whole frontier
+                tracing.count("bfs.ranges_served")
+                with tracing.span("executor.apply"):
+                    ex.account_range(lo, hi)
+                continue
+            # the level's first range expands the whole frontier (slots [0,
+            # n_frontier); the executor clamps the end): the sweep reads
+            # every edge whatever the frontier, so the level's other ranges
+            # need none of their own
+            members = ex.frontier_slot_vertices(0, h.num_vertices)
             contrib = torch.zeros(
                 (h.num_vertices,), dtype=torch.float32, device=members.device
             )
             contrib[members.to(torch.int64)] = 1.0
             # members' out-neighbours may land in any target tile → full grid
             counts = self._spmv_range(h, contrib, 0, n_tiles)
+            tracing.count("bfs.level_sweeps")
             with tracing.span("executor.apply"):
                 ex.apply_expansion(counts[: h.num_vertices], lo, hi)
 

@@ -193,10 +193,11 @@ _LOWERING_MK = {
 
 def _forced_width_run(monkeypatch, g, kind, width, domains):
     """Two sessions of ``kind`` through a ``CudaBackend`` that hands every
-    step to its lowering at gang width ``width``. Returns the results, and
-    for each lowered ``execute`` the kernel calls it made, its merged
-    package ranges, whether any call ran on the plan's shard slab and
-    whether the plan has one."""
+    step to its lowering at gang width ``width``. Returns the results, for
+    each lowered ``execute`` the kernel calls it made, its merged package
+    ranges, whether any call ran on the plan's shard slab and whether the
+    plan has one, and the iterations (levels, for BFS) the queries
+    committed."""
     import repro_torch.kernels.degree_count.ops as dc_ops
     import repro_torch.kernels.spmv.ops as spmv_ops
     from repro_torch.algorithms.common import merge_ranges
@@ -229,10 +230,10 @@ def _forced_width_run(monkeypatch, g, kind, width, domains):
     eng = tcore.MultiQueryEngine(tcore.XEON_E5_2660V4, pool_capacity=16, policy="scheduler")
     with monkeypatch.context() as m:
         m.setattr(mod, name, counted)
-        eng.run_sessions(mk, sessions=2, queries_per_session=1,
-                         config=tcore.EngineConfig(steal=True, domains=domains, backend=ForcedWidth()))
+        rep = eng.run_sessions(mk, sessions=2, queries_per_session=1,
+                               config=tcore.EngineConfig(steal=True, domains=domains, backend=ForcedWidth()))
     assert eng.pool.available == eng.pool.capacity
-    return [ex.result() for ex in made], steps
+    return [ex.result() for ex in made], steps, sum(r.iterations for r in rep.records)
 
 
 @pytest.mark.parametrize("width", [1, 4, 19, 56])
@@ -240,17 +241,55 @@ def _forced_width_run(monkeypatch, g, kind, width, domains):
 def test_cuda_backend_one_launch_per_merged_range(graphs, monkeypatch, kind, domains, width):
     """Every merged package range of a step is one kernel call (``spmv_tiles``,
     or ``count_into`` for degree counts), whatever the step's gang width, and
-    the answers equal width 1's to the bit; with two locality domains the
+    the answers equal width 1's to the bit; BFS makes at most one call a
+    step, one for each level committed; with two locality domains the
     PR-pull ranges inside the plan's shard run on its slab."""
     g = graphs["torch"]
-    got, steps = _forced_width_run(monkeypatch, g, kind, width, domains)
-    want, _ = _forced_width_run(monkeypatch, g, kind, 1, domains)
-    assert steps and all(calls == ranges for calls, ranges, _, _ in steps)
+    got, steps, levels = _forced_width_run(monkeypatch, g, kind, width, domains)
+    want, _, _ = _forced_width_run(monkeypatch, g, kind, 1, domains)
+    assert steps
+    if kind == "bfs":
+        assert all(calls <= 1 for calls, *_ in steps)
+        assert sum(calls for calls, *_ in steps) == levels
+    else:
+        assert all(calls == ranges for calls, ranges, _, _ in steps)
     for a, b in zip(got, want):
         assert torch.equal(torch.from_numpy(a), torch.from_numpy(b))
     if domains > 1:
         assert all(has_slab for *_, has_slab in steps)
         assert any(on_slab for _, _, on_slab, _ in steps)
+
+
+def test_cuda_backend_bfs_sweeps_once_per_level(graphs12):
+    """Four contending BFS sessions cut their levels into several merged
+    ranges; each level's first range sweeps for the whole frontier and the
+    others launch nothing (``bfs.level_sweeps`` and ``bfs.ranges_served``),
+    the levels equal the oracle's and ``edges_traversed`` equals an
+    ``InlineBackend`` run's to the bit."""
+    from repro_torch.core import tracing
+
+    g = graphs12["torch"]
+    hubs = np.argsort(-g.out_degrees().numpy())
+    made = []
+
+    def mk(s, q):
+        made.append(talg.BFSExecutor(g, int(hubs[s])))
+        return made[-1]
+
+    eng = tcore.MultiQueryEngine(tcore.XEON_E5_2660V4, pool_capacity=8, policy="scheduler")
+    rec = tracing.start()
+    try:
+        rep = eng.run_sessions(mk, sessions=4, queries_per_session=1,
+                               config=tcore.EngineConfig(steal=True, backend="cuda"))
+    finally:
+        tracing.stop()
+    sweeps, served = rec.counters.get("bfs.level_sweeps", 0), rec.counters.get("bfs.ranges_served", 0)
+    assert served > 0 and sweeps == sum(r.iterations for r in rep.records)
+    for ex in made:
+        np.testing.assert_array_equal(ex.result(), talg.bfs_reference(g, ex.source))
+        inline = talg.BFSExecutor(g, ex.source)
+        _run_one(tcore, _engine(tcore, "inline"), inline)
+        assert ex.edges_traversed() == inline.edges_traversed()
 
 
 # ---------------- measured time reaches the feedback loop ----------------

@@ -372,9 +372,11 @@ def test_cuda_backend_results_stable_across_gang_widths_on_card(cuda):
 
 
 def test_cuda_backend_one_launch_per_merged_range_on_card(cuda):
-    """4 PageRank-pull and 4 BFS sessions on the card: every step launches
-    spmv once per merged package range, whatever its gang width, and a pool
-    of 1 and a pool of 56 give the same ranks and levels to the bit."""
+    """4 PageRank-pull and 4 BFS sessions on the card: every PageRank step
+    launches spmv once per merged package range, whatever its gang width,
+    BFS launches it once per level committed, the levels equal the oracle's,
+    and a pool of 1 and a pool of 56 give the same ranks and levels to the
+    bit."""
     from repro_torch.algorithms.common import merge_ranges
 
     g = rmat_graph(12, seed=3, device=cuda)
@@ -388,7 +390,7 @@ def test_cuda_backend_one_launch_per_merged_range_on_card(cuda):
                 n0 = spmv_rows_cuda.launches
                 ns = super().execute(plan, step, modeled_ns)
                 ranges = len(merge_ranges(plan.prep.packages.bounds, step.batch))
-                steps.append((spmv_rows_cuda.launches - n0, ranges, step.workers))
+                steps.append((plan.handle.kind, spmv_rows_cuda.launches - n0, ranges, step.workers))
                 return ns
 
         made = []
@@ -399,10 +401,15 @@ def test_cuda_backend_one_launch_per_merged_range_on_card(cuda):
             return made[-1]
 
         eng = core.MultiQueryEngine(core.XEON_E5_2660V4, pool_capacity=pool, policy="scheduler")
-        eng.run_sessions(mk, sessions=8, queries_per_session=1,
-                         config=core.EngineConfig(steal=True, backend=Counted()))
+        rep = eng.run_sessions(mk, sessions=8, queries_per_session=1,
+                               config=core.EngineConfig(steal=True, backend=Counted()))
         assert eng.pool.available == eng.pool.capacity
-        assert steps and all(launches == ranges for launches, ranges, _ in steps)
+        assert steps and all(launches == ranges for kind, launches, ranges, _ in steps if kind == "pr_pull")
+        levels = sum(r.iterations for r in rep.records if r.algorithm == alg.BFSExecutor.desc.name)
+        assert sum(launches for kind, launches, _, _ in steps if kind == "bfs") == levels > 0
+        for ex in made:
+            if isinstance(ex, alg.BFSExecutor):
+                np.testing.assert_array_equal(ex.result(), alg.bfs_reference(g, ex.source))
         return [torch.from_numpy(ex.result()) for ex in made], max(w for *_, w in steps)
 
     narrow, w1 = run(1)

@@ -25,7 +25,9 @@ fewer launches than the kernels counted. Then ``--ab`` rounds without the
 profiler, the tracer on and off in turns (on first on odd seeds), for the
 tracer's own cost, and the program's host readings of those traced rounds
 (no profiler); the answers of every traced round are compared bit for bit
-with the same query's answer in an untraced round. Full garbage
+with the same query's answer in an untraced round. The program block's
+counters include ``bfs.level_sweeps`` and ``bfs.ranges_served``, printed
+with their engage share (ranges served over ranges). Full garbage
 collections are timed throughout. Last, the cost of one instrumented site
 with tracing off and on, timed in a loop, times the sites a round visits.
 
@@ -232,6 +234,8 @@ def run_seed(workload: str, seed: int, ab: int, device: torch.device, raw: Path 
     round_s = sum(b - a for a, b in prog_rounds) / 1e9 / len(prog_rounds)
     del backend, graph, stamped_cls
     mean = lambda xs: sum(xs) / len(xs) if xs else None
+    # BFS levels swept once for the whole frontier, and ranges answered from their level's sweep
+    sweeps, served = (prog.counters.get(k, 0) for k in ("bfs.level_sweeps", "bfs.ranges_served"))
     host_keys = ("sched_self_pct", "executor_host_pct", "dispatch_host_ms", "sync_wait_ms", "host_syncs_per_step")
     return {
         "workload": workload, "seed": seed,
@@ -249,6 +253,8 @@ def run_seed(workload: str, seed: int, ab: int, device: torch.device, raw: Path 
         "host_syncs_per_step": prog.host_syncs_per_step,
         "idle_s": prog.idle_s, "idle_by_span": prog.idle_by_span, "gaps": prog.gaps,
         "self_s": prog.self_s, "total_s": prog.total_s, "spans": prog.spans, "counters": prog.counters,
+        "bfs_level_sweeps": sweeps, "bfs_ranges_served": served,
+        "bfs_engage_share": served / (served + sweeps) if served + sweeps else None,
         "anchor_offset_ns": prog.anchor_offset_ns, "marker_offset_ns": prog.marker_offset_ns,
         "offset_ns": prog.offset_ns, "aligned_share": prog.aligned_share, "anchor_share": prog.anchor_share,
         "anchor_drift_us": ((rec.anchors[1][1] - rec.anchors[1][0]) - (rec.anchors[0][1] - rec.anchors[0][0])) / 1e3,
