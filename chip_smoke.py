@@ -722,16 +722,15 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
     part = check_spmv(t_in, contrib, a, b, False, "in-edges partial range")
     if not torch.equal(part, full[a * 512 : b * 512]):
         raise AssertionError("spmv partial range differs from the full sweep")
-    slab = t_in.slab(0, T // 2)
-    half = check_spmv(slab, contrib, 0, T // 2, False, "in-edges shard slab")
+    half = check_spmv(t_in, contrib, 0, T // 2, False, "in-edges first half")
     if not torch.equal(half, full[: (T // 2) * 512]):
-        raise AssertionError("spmv shard slab differs from the full tables")
+        raise AssertionError("spmv first half differs from the full sweep")
     frontier = torch.zeros(V, dtype=torch.float32, device=dev)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     frontier[torch.randperm(V, generator=gen)[:4096].to(dev)] = 1.0
     counts = check_spmv(t_out, frontier, 0, T, True, "out-edges BFS count sweep")
     part = check_spmv(t_out, frontier, a, b, True, "out-edges partial range")
-    half = check_spmv(t_out.slab(T // 2, T), frontier, 0, T - T // 2, True, "out-edges shard slab")
+    half = check_spmv(t_out, frontier, T // 2, T, True, "out-edges second half")
     if not (torch.equal(part, counts[a * 512 : b * 512]) and torch.equal(half, counts[(T // 2) * 512 :])):
         raise AssertionError("spmv out-edge ranges differ from the full sweep")
 
@@ -771,7 +770,7 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
         raise AssertionError("ops.degree_count over the whole graph differs from the oracle")
     took = [k for k, n in degree_count_cuda.launches_by_path.items() if n > before[k]]
     log(f"ops.degree_count over the whole graph ({took} kernel) equals the numpy oracle")
-    del pr, slab
+    del pr
 
     # 4. main path ---------------------------------------------------------
     spmv_rows_cuda.launches = 0

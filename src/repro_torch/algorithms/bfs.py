@@ -122,7 +122,7 @@ class BFSExecutor:
 
     def __post_init__(self):
         self._ea = EdgeArrays.from_graph(self.graph)
-        self._out_deg_host = tracing.host_read(self._ea.out_deg).numpy()
+        self._out_deg_host = self.graph.out_deg_host
 
     # -- protocol ------------------------------------------------------
     def graph_stats(self) -> GraphStats:

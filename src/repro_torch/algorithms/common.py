@@ -18,7 +18,8 @@ from ..graph.structure import Graph
 
 @dataclasses.dataclass(frozen=True)
 class EdgeArrays:
-    """Device-resident edge-centric views of a graph."""
+    """Device-resident edge-centric views of a graph, shared by every
+    executor on it: read-only."""
 
     src: torch.Tensor          # [E] int32, sorted by src (out-edge order)
     dst: torch.Tensor          # [E] int32
@@ -30,13 +31,13 @@ class EdgeArrays:
 
     @classmethod
     def from_graph(cls, g: Graph) -> "EdgeArrays":
-        in_dst = g.csr_in.edge_sources()  # sources of in-CSR == targets
+        """Views of the graph's own arrays: nothing is copied."""
         return cls(
             src=g.src,
             dst=g.dst,
             in_src=g.csr_in.indices,      # in-CSR indices = original sources
-            in_dst=in_dst,
-            out_deg=g.csr.out_degrees().to(torch.int32),
+            in_dst=g.in_targets,
+            out_deg=g.out_deg,
             num_vertices=g.num_vertices,
             num_edges=g.num_edges,
         )

@@ -107,9 +107,9 @@ class PageRankExecutor:
             raise ValueError(self.mode)
         self.desc = PR_PULL if self.mode == "pull" else PR_PUSH
         self._ea = EdgeArrays.from_graph(self.graph)
-        self._deg_host = tracing.host_read(
-            self.graph.in_degrees() if self.mode == "pull" else self._ea.out_deg
-        ).numpy()
+        self._deg_host = (
+            self.graph.in_deg_host if self.mode == "pull" else self.graph.out_deg_host
+        )
         # kernel-lowering opt-in for core.backends.CudaBackend (the JAX
         # package names it ``pallas_lowering``): pull is an owner-computes
         # SpMV; push's unsorted scatter has no kernel lowering

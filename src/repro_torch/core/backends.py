@@ -34,7 +34,9 @@ The protocol splits *preparation* from *execution* deliberately:
 ``prepare`` may build kernels, stage device tile tables and warm them;
 ``execute`` measures steady-state kernel time only. The engine never times
 ``prepare``, so a build cannot pollute the width-feedback EWMA's first
-observation.
+observation. A plan lives as long as the step it serves: graph-wide device
+state is owned once per graph (the graph's own views, ``CudaBackend``'s
+per-graph tables), and no backend keeps an executor.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 
 from . import tracing
+from .stealing import graph_identity
 from ..kernels.spmv.spmv import DST_TILE
 
 if TYPE_CHECKING:  # pragma: no cover - annotation-only imports (no cycles)
@@ -53,39 +56,28 @@ if TYPE_CHECKING:  # pragma: no cover - annotation-only imports (no cycles)
     from .scheduler import ScheduleStep
     from .session import QueryExecutor
 
-# plans memoized per backend, oldest evicted first. At most one prep is live
-# per executor, but an engine loop that makes a new executor for every query
-# fills the memo to this cap, and each plan keeps its executor, with the
-# executor's device arrays, alive until it is evicted
-_PLAN_CACHE_CAP = 256
-
 
 @dataclasses.dataclass(frozen=True)
 class DevicePlan:
-    """Backend-prepared execution state for one (executor, prep, shard) key.
+    """Backend-prepared execution state for one (executor, prep) pair.
 
     ``handle`` is backend-private (device tile tables, prefix sums for
-    unpadding); the engine only ever passes the plan back to the backend
-    that built it. ``shard`` is the locality-domain
-    :class:`~..graph.partition.GraphShard` the plan was staged against
-    (``None`` on a single-domain pool)."""
+    unpadding) and shared by every plan on the same graph; the engine only
+    ever passes the plan back to the backend that built it."""
 
     executor: "QueryExecutor"
     prep: "PreparedIteration"
     handle: Any = None
-    shard: Any = None
 
 
 @runtime_checkable
 class ExecutionBackend(Protocol):
     """Where a schedule step's packages execute.
 
-    ``prepare`` is called (and memoized) before the first ``execute`` of an
-    (executor, prep) pair and may be arbitrarily slow — kernel builds and
-    device staging belong here, *outside* any measured window. A
-    multi-domain engine additionally passes the ``shard`` its placement
-    chose; the backend memoizes one plan per (prep, shard) so dispatch can
-    run against shard-local device state. ``execute`` runs one step's
+    ``prepare`` is called before every ``execute``, outside the measured
+    window; the first call on a graph may be arbitrarily slow — kernel
+    builds and device staging belong there — and later ones return a new
+    plan around the graph's staged state. ``execute`` runs one step's
     package batch at the granted width and returns the measured nanoseconds
     that flow into records and the §4.4 feedback tables. ``modeled_ns`` is
     the engine's modeled cost for the step — substrates that do no
@@ -93,11 +85,9 @@ class ExecutionBackend(Protocol):
 
     name: str
 
-    def prepare(
-        self, executor: "QueryExecutor", prep: "PreparedIteration", shard: Any = None
-    ) -> DevicePlan:
-        """Stage one (executor, prep[, shard]) key for execution (build
-        kernels, stage device tables, warm them); memoized per key."""
+    def prepare(self, executor: "QueryExecutor", prep: "PreparedIteration") -> DevicePlan:
+        """A plan for one (executor, prep) pair; stages the graph's device
+        state (build kernels, stage tables, warm them) on first use."""
         ...
 
     def execute(
@@ -127,41 +117,6 @@ def _sync_if_cuda(executor: "QueryExecutor") -> None:
         tracing.host_read(dev)
 
 
-class _PlanMemo:
-    """Per-backend (executor, prep, shard) → DevicePlan memo.
-
-    Keyed by object ids but holding strong references through the stored
-    plans, so a key can never be reused while its entry is alive. ``shard``
-    joins the key so a session whose placement drifts across domains gets
-    one plan per shard it executes against, not a single clobbered slot.
-    Evicts FIFO past the cap. At most one prep is live per executor, but a
-    loop that makes new executors (one a query) reaches the cap, and the
-    memo then holds the last 256 plans' executors alive."""
-
-    def __init__(self) -> None:
-        self._plans: dict[tuple[int, int, int], DevicePlan] = {}
-
-    def get(
-        self, executor: "QueryExecutor", prep: "PreparedIteration", shard: Any = None
-    ) -> DevicePlan | None:
-        """The memoized plan for this exact (executor, prep, shard) key."""
-        return self._plans.get(
-            (id(executor), id(prep), id(shard) if shard is not None else 0)
-        )
-
-    def put(self, plan: DevicePlan) -> DevicePlan:
-        """Memoize ``plan``; evicts the oldest entry past the cap."""
-        key = (
-            id(plan.executor),
-            id(plan.prep),
-            id(plan.shard) if plan.shard is not None else 0,
-        )
-        self._plans[key] = plan
-        while len(self._plans) > _PLAN_CACHE_CAP:
-            self._plans.pop(next(iter(self._plans)))
-        return plan
-
-
 class ModeledBackend:
     """Default substrate: advance the query, trust the modeled clock.
 
@@ -175,17 +130,9 @@ class ModeledBackend:
 
     name = "modeled"
 
-    def __init__(self) -> None:
-        self._memo = _PlanMemo()
-
-    def prepare(
-        self, executor: "QueryExecutor", prep: "PreparedIteration", shard: Any = None
-    ) -> DevicePlan:
+    def prepare(self, executor: "QueryExecutor", prep: "PreparedIteration") -> DevicePlan:
         """No device staging needed; returns a bare (executor, prep) plan."""
-        plan = self._memo.get(executor, prep, shard)
-        if plan is None:
-            plan = self._memo.put(DevicePlan(executor, prep, shard=shard))
-        return plan
+        return DevicePlan(executor, prep)
 
     def execute(
         self, plan: DevicePlan, step: "ScheduleStep", modeled_ns: float = 0.0
@@ -202,18 +149,7 @@ class InlineBackend:
     measured window; on the card the end stamp waits for the device."""
 
     name = "inline"
-
-    def __init__(self) -> None:
-        self._memo = _PlanMemo()
-
-    def prepare(
-        self, executor: "QueryExecutor", prep: "PreparedIteration", shard: Any = None
-    ) -> DevicePlan:
-        """No device staging needed; returns a bare (executor, prep) plan."""
-        plan = self._memo.get(executor, prep, shard)
-        if plan is None:
-            plan = self._memo.put(DevicePlan(executor, prep, shard=shard))
-        return plan
+    prepare = ModeledBackend.prepare
 
     def execute(
         self, plan: DevicePlan, step: "ScheduleStep", modeled_ns: float = 0.0
@@ -238,14 +174,10 @@ class _CudaHandle:
     num_vertices: int = 0
     edge_prefix: np.ndarray | None = None  # [V+1] in-edges with dst < v (pr_pull)
     ids: Any = None                # [2, E] int32 endpoint ids mod C (degree_count)
-    # shard-local dispatch (locality domains): the plan's shard covers dst
-    # tiles [tile_lo, tile_hi) and ``slab`` holds those tiles alone — ranges
-    # inside it dispatch against the slab (what a domain's device would
-    # actually hold), anything outside falls back to the full tables so
-    # results stay exact when a frontier drifts off its placed shard
-    tile_lo: int = 0
-    tile_hi: int = 0
-    slab: Any = None
+
+
+# the handle of executors without a kernel lowering: they run inline
+_INLINE = _CudaHandle(kind="inline")
 
 
 class CudaBackend:
@@ -284,32 +216,13 @@ class CudaBackend:
     name = "cuda"
 
     def __init__(self) -> None:
-        self._memo = _PlanMemo()
-        # graph-level device state, shared by every plan on the same graph:
-        # raw tile tables under (gkey, "in"|"out"), and *whole warmed
-        # handles* under (gkey, kind, shard_key) — the topology is staged
-        # and the kernel warmed once per (graph, shard), so N concurrent
-        # sessions (same or different algorithms, scan-shared gangs
-        # included) load it once, not once per prep
+        # graph-level device state, the backend's only cache: raw tile
+        # tables under (gkey, "in"|"out"), and *whole warmed handles* under
+        # (gkey, kind, counters) — the topology is staged and the kernel
+        # warmed once per graph, so N concurrent sessions (same or
+        # different algorithms, scan-shared gangs included) load it once.
+        # A handle holds no executor
         self._graph_tables: dict[tuple, _CudaHandle] = {}
-
-    def _handle_key(self, executor: "QueryExecutor", kind: str, gkey, shard) -> tuple | None:
-        """Shared-handle cache key: everything the staged device state
-        depends on besides the graph itself. ``None`` when the lowering has
-        no shareable state (inline fallback) or the graph has no identity."""
-        if gkey is None:
-            return None
-        if kind == "pr_pull":
-            skey = (
-                (int(shard.v_lo), int(shard.v_hi)) if shard is not None else None
-            )
-            return (gkey, kind, skey)
-        if kind == "bfs":
-            return (gkey, kind, None)
-        if kind == "degree_count":
-            # ids are reduced mod the counter-array size
-            return (gkey, kind, int(executor.num_counters))
-        return None
 
     # ------------------------------------------------------------ staging
     def _spmv_tables(self, key: tuple, src, dst, num_vertices: int):
@@ -335,45 +248,33 @@ class CudaBackend:
         spmv_tiles(tables, contrib, 0, 1)
         tracing.host_read(contrib.device)
 
-    def prepare(
-        self, executor: "QueryExecutor", prep: "PreparedIteration", shard: Any = None
-    ) -> DevicePlan:
-        """Build (or reuse) device tile tables and warm the kernel; with a
-        ``shard`` the pr_pull plan additionally stages the shard's dst-tile
-        slab so dispatch against the placed domain touches only its slice."""
-        plan = self._memo.get(executor, prep, shard)
-        if plan is not None:
-            return plan
-        with tracing.span("backend.prepare"):
-            return self._stage_plan(executor, prep, shard)
-
-    def _stage_plan(
-        self, executor: "QueryExecutor", prep: "PreparedIteration", shard: Any
-    ) -> DevicePlan:
-        """A new plan for :meth:`prepare`: the shared handle, or a staged
-        and warmed one."""
-        from .stealing import graph_identity
-
-        gkey = graph_identity(executor)
+    def prepare(self, executor: "QueryExecutor", prep: "PreparedIteration") -> DevicePlan:
+        """A plan around the graph's handle: device tile tables staged and
+        the kernel warmed on the graph's first plan of a lowering, reused
+        by every later one."""
         # executors opt into a kernel lowering explicitly (a subclass whose
         # run_packages carries extra semantics — direction-optimized BFS —
         # opts back out by clearing the attribute)
         kind = getattr(executor, "kernel_lowering", None)
-        hkey = self._handle_key(executor, kind, gkey, shard) if kind else None
-        if hkey is not None:
-            shared = self._graph_tables.get(hkey)
-            if shared is not None:
-                # another session (or a previous prep of this one) already
-                # staged and warmed this (graph, kind, shard) — reuse it
-                return self._memo.put(
-                    DevicePlan(executor, prep, shared, shard=shard)
-                )
-        handle: _CudaHandle
+        gkey = graph_identity(executor)
+        if kind not in ("pr_pull", "bfs", "degree_count") or gkey is None:
+            return DevicePlan(executor, prep, _INLINE)
+        # ids are reduced mod the counter-array size
+        counters = int(executor.num_counters) if kind == "degree_count" else None
+        hkey = (gkey, kind, counters)
+        handle = self._graph_tables.get(hkey)
+        if handle is None:
+            with tracing.span("backend.prepare"):
+                handle = self._stage(executor, kind, gkey)
+            self._graph_tables[hkey] = handle
+        return DevicePlan(executor, prep, handle)
+
+    def _stage(self, executor: "QueryExecutor", kind: str, gkey) -> _CudaHandle:
+        """Stage and warm a graph's handle for one lowering."""
         if kind == "pr_pull":
             in_src, in_dst = executor.pull_edges()
             nv = int(executor.graph.num_vertices)
             tables = self._spmv_tables((gkey, "in"), in_src, in_dst, nv)
-            tile = DST_TILE
             # the in-edge list is sorted by target: the tables' row offsets
             # are the prefix sum of in-degrees, exact per-range edge counts
             # without touching the device at execute time
@@ -383,12 +284,6 @@ class CudaBackend:
                 num_vertices=nv,
                 edge_prefix=tracing.host_read(tables.row_ptr[: nv + 1]).numpy(),
             )
-            if shard is not None:
-                # the shard's target vertices [v_lo, v_hi) cover dst tiles
-                # [tile_lo, tile_hi); the slab is the shard-local device state
-                handle.tile_lo = int(shard.v_lo) // tile
-                handle.tile_hi = -(-int(shard.v_hi) // tile)
-                handle.slab = tables.slab(handle.tile_lo, handle.tile_hi)
             self._warm_spmv(handle)
         elif kind == "bfs":
             src, dst = executor.out_edges()
@@ -396,7 +291,7 @@ class CudaBackend:
             tables = self._spmv_tables((gkey, "out"), src, dst, nv)
             handle = _CudaHandle(kind="bfs", tables=tables, num_vertices=nv)
             self._warm_spmv(handle)
-        elif kind == "degree_count":
+        else:
             from ..kernels.degree_count.ops import count_into
 
             src, dst = executor.edge_endpoints()
@@ -410,31 +305,15 @@ class CudaBackend:
             warm = torch.zeros((c,), dtype=torch.int32, device=ids.device)
             count_into(ids[:, :1], warm)
             _sync_if_cuda(executor)
-        else:
-            handle = _CudaHandle(kind="inline")
-        if hkey is not None:
-            self._graph_tables[hkey] = handle
-        return self._memo.put(DevicePlan(executor, prep, handle, shard=shard))
+        return handle
 
     # ---------------------------------------------------------- execution
-    def _tile_slab(self, handle: _CudaHandle, a: int, b: int):
-        """(tables, a', b') for absolute dst tiles [a, b): the shard-local
-        slab when the range lies inside the plan's shard (the common case
-        under locality placement — the dispatch never touches other shards'
-        tables), the full tables otherwise (a drifted frontier stays
-        exact)."""
-        if handle.slab is not None and a >= handle.tile_lo and b <= handle.tile_hi:
-            lo = handle.tile_lo
-            return handle.slab, a - lo, b - lo
-        return handle.tables, a, b
-
     def _spmv_range(self, handle: _CudaHandle, contrib, t0: int, t1: int):
         """Aggregate dst tiles [t0, t1) in one launch; returns the flat
         [(t1-t0)*tile] per-target sums."""
         from ..kernels.spmv.ops import spmv_tiles
 
-        tables, a, b = self._tile_slab(handle, t0, t1)
-        return spmv_tiles(tables, contrib, a, b).reshape(-1)
+        return spmv_tiles(handle.tables, contrib, t0, t1).reshape(-1)
 
     def _ranges(self, plan: DevicePlan, step: "ScheduleStep") -> list[tuple[int, int]]:
         """The batch's contiguous frontier-slot ranges."""

@@ -854,25 +854,16 @@ class MultiQueryEngine:
         prep: PreparedIteration,
         step: ScheduleStep,
         modeled_ns: float = 0.0,
-        shard: Any = None,
     ) -> float:
         """Dispatch one schedule step through the execution backend; returns
         the backend's measured ns.
 
-        ``prepare`` runs (memoized per (executor, prep, shard)) *before* the
-        measured window — backend staging and jit warm-up never pollute the
-        first step's measurement, so the width-feedback EWMA only ever sees
-        steady-state execution time. ``modeled_ns`` is the step's modeled
-        cost, passed through for substrates (ModeledBackend) that echo it
-        instead of measuring. ``shard`` (multi-domain runs) is the placed
-        domain's :class:`~..graph.partition.GraphShard`: substrates that
-        stage per-shard device tables (CudaBackend) dispatch against the
-        shard-local slices; the two-argument call is kept for duck-typed
-        backends that predate the shard axis."""
-        if shard is not None:
-            plan = self.backend.prepare(executor, prep, shard)
-        else:
-            plan = self.backend.prepare(executor, prep)
+        ``prepare`` runs *before* the measured window — backend staging and
+        kernel warm-up never pollute the first step's measurement, so the
+        width-feedback EWMA only ever sees steady-state execution time.
+        ``modeled_ns`` is the step's modeled cost, passed through for
+        substrates (ModeledBackend) that echo it instead of measuring."""
+        plan = self.backend.prepare(executor, prep)
         return float(self.backend.execute(plan, step, modeled_ns=modeled_ns))
 
     def _step_cost_ns(
@@ -1069,9 +1060,9 @@ class MultiQueryEngine:
         record stamps the epoch of the snapshot it pinned at start, and the
         shared prep cache's staleness stamp gains that epoch. Because the
         snapshot ``epoch`` is a component of ``Graph.key``, fusion
-        rendezvous, steal locality, partitions, and backend memos
-        distinguish snapshots without further plumbing — no gang ever mixes
-        members pinned to different snapshots. ``dynamic=False`` (the
+        rendezvous, steal locality, partitions, and the backend's per-graph
+        tables distinguish snapshots without further plumbing — no gang
+        ever mixes members pinned to different snapshots. ``dynamic=False`` (the
         default) performs zero epoch calls and keeps every scheduling
         decision byte-identical to the static-graph engine (the fig10–21
         modeled rows are unchanged).
@@ -1187,13 +1178,6 @@ class MultiQueryEngine:
                     GraphPartition.build(g, domains) if g is not None else None
                 )
             return partitions[st.graph_key]
-
-        def _shard_for(st: _SessionState):
-            """The placed domain's shard (backend dispatch target), if any."""
-            if st.domain is None:
-                return None
-            part = partitions.get(st.graph_key)
-            return part.shards[st.domain] if part is not None else None
 
         records: list[QueryRecord] = []
         report = EngineReport(
@@ -2376,9 +2360,7 @@ class MultiQueryEngine:
                 if st.pending_migration_ns:
                     step_ns += st.pending_migration_ns
                     st.pending_migration_ns = 0.0
-                step_measured = self._execute_step(
-                    st.executor, st.prep, step, step_ns, shard=_shard_for(st)
-                )
+                step_measured = self._execute_step(st.executor, st.prep, step, step_ns)
                 st.iter_measured_ns += step_measured
                 st.iter_modeled_ns += step_ns
                 # plain schedule steps (including post-preemption residual

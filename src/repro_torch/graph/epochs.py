@@ -18,8 +18,8 @@ the graph-layer half of that story:
 
 Because ``epoch`` is a component of ``Graph.key``, every identity-keyed
 runtime structure — fusion rendezvous, steal locality ranking, the shared
-prep cache, ``GraphPartition`` shard views, backend device-plan/table
-memos — distinguishes snapshots automatically: stale entries are simply
+prep cache, ``GraphPartition`` shard views, the backend's per-graph
+device tables — distinguishes snapshots automatically: stale entries are simply
 never looked up again, and no gang can mix members on different snapshots.
 
 The log is a host-side, single-writer structure: the engine applies

@@ -84,8 +84,8 @@ class GraphShard:
     Carries a *shard-local CSR view*: ``indptr`` is rebased to the shard
     (``indptr[0] == 0``), ``indices`` holds the out-neighbour ids (global
     vertex ids — edges may leave the shard; that is what the cut statistics
-    measure). Execution backends memoize one device plan per (prep, shard)
-    and stage these slices instead of the whole graph."""
+    measure). The scheduler places and prices queries by shard; execution
+    backends dispatch against the whole graph's tables."""
 
     index: int
     v_lo: int

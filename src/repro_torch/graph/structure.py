@@ -9,6 +9,7 @@ tensors on the device the caller chose.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -91,7 +92,11 @@ class GraphStats:
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
-    """A graph bundle: out-CSR, in-CSR (for pull), COO views, and stats."""
+    """A graph bundle: out-CSR, in-CSR (for pull), COO views, and stats.
+
+    The views every query's executor reads (in-edge targets, int32
+    out-degrees, host copies of both degree vectors) are derived once, on
+    first use, and shared read-only by every executor on the graph."""
 
     csr: CSRGraph                  # out-edges (push / BFS top-down)
     csr_in: CSRGraph               # in-edges  (pull PR)
@@ -114,12 +119,12 @@ class Graph:
     def device(self) -> torch.device:
         return self.src.device
 
-    @property
+    @functools.cached_property
     def key(self) -> tuple:
         """Stable identity for same-graph co-scheduling (steal locality,
-        gang fusion, backend device-table memos): the name, the snapshot
-        epoch and construction-time statistics, all Python ints, so two
-        separately loaded copies of one dataset share one key."""
+        gang fusion, the backend's per-graph device tables): the name, the
+        snapshot epoch and construction-time statistics, all Python ints, so
+        two separately loaded copies of one dataset share one key."""
         s = self.stats
         return (
             self.name,
@@ -136,6 +141,34 @@ class Graph:
 
     def in_degrees(self) -> torch.Tensor:
         return self.csr_in.out_degrees()
+
+    @functools.cached_property
+    def in_targets(self) -> torch.Tensor:
+        """[E] int32 target of each in-edge, in in-CSR order (ascending)."""
+        return self.csr_in.edge_sources()
+
+    @functools.cached_property
+    def out_deg(self) -> torch.Tensor:
+        """[V] int32 out-degrees on the graph's device."""
+        return self.out_degrees().to(torch.int32)
+
+    @functools.cached_property
+    def out_deg_host(self) -> np.ndarray:
+        """[V] out-degrees on the host (read-only)."""
+        return _host_copy(self.out_deg)
+
+    @functools.cached_property
+    def in_deg_host(self) -> np.ndarray:
+        """[V] in-degrees on the host (read-only)."""
+        return _host_copy(self.in_degrees())
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    from ..core import tracing  # here: the core package imports this module
+
+    a = tracing.host_read(t).numpy()
+    a.flags.writeable = False
+    return a
 
 
 def _csr_from_coo_np(src: np.ndarray, dst: np.ndarray, num_vertices: int):

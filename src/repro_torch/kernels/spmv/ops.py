@@ -42,26 +42,6 @@ class SpmvTiles:
     def n_blocks(self) -> int:
         return self.blocks.shape[1] - 1
 
-    def slab(self, a: int, b: int) -> "SpmvTiles":
-        """A standalone copy of tiles [a, b) (offsets, rows and blocks
-        rebased to 0): the state a locality domain owning those targets
-        would hold."""
-        r0, r1 = a * DST_TILE, b * DST_TILE
-        i0, i1 = int(self.tile_blocks[a]), int(self.tile_blocks[b])
-        row_ptr = self.row_ptr[r0 : r1 + 1]
-        e0, e1 = int(row_ptr[0]), int(row_ptr[-1])
-        blocks = self.blocks[:, i0 : i1 + 1].clone()
-        blocks[0] -= r0
-        blocks[1, -1] = -1
-        return SpmvTiles(
-            row_ptr=(row_ptr - e0).contiguous(),
-            src=self.src[e0:e1].clone(),
-            blocks=blocks,
-            tile_blocks=self.tile_blocks[a : b + 1] - i0,
-            scratch=torch.zeros_like(self.scratch[:, i0:i1]),
-            num_vertices=max(min(self.num_vertices - r0, r1 - r0), 0),
-        )
-
 
 def row_blocks(row_ptr: torch.Tensor, block_edges: int = BLOCK_EDGES) -> tuple[torch.Tensor, torch.Tensor]:
     """Cut the rows of ``row_ptr`` (whole tiles) into blocks for the kernel,

@@ -110,3 +110,41 @@ def test_edge_arrays_match_jax(graphs):
     for f in ("src", "dst", "in_src", "in_dst", "out_deg"):
         np.testing.assert_array_equal(getattr(te, f).numpy(), np.asarray(getattr(je, f)))
     assert (te.num_vertices, te.num_edges) == (je.num_vertices, je.num_edges)
+
+
+_VIEW_MK = {
+    "pr_pull": lambda g: talg.PageRankExecutor(g, mode="pull"),
+    "pr_push": lambda g: talg.PageRankExecutor(g, mode="push"),
+    "bfs": lambda g: talg.BFSExecutor(g, 0),
+    "do_bfs": lambda g: talg.DirectionOptimizedBFSExecutor(g, 0),
+}
+
+
+@pytest.mark.parametrize("kind", list(_VIEW_MK))
+def test_executors_share_graph_views(graphs, monkeypatch, kind):
+    """Two executors on one graph borrow the graph's views: the same storage
+    for every edge array and the out-degrees, the same read-only host
+    degree array. Building the second expands no edge list and reads
+    nothing from the device."""
+    from repro_torch.core import tracing
+    from repro_torch.graph.structure import CSRGraph
+
+    g = port_graph(graphs[0])  # a new graph: its views are not built yet
+    first = _VIEW_MK[kind](g)
+    calls = []
+    expand, read = CSRGraph.edge_sources, tracing.host_read
+    monkeypatch.setattr(CSRGraph, "edge_sources", lambda csr: calls.append("expand") or expand(csr))
+    monkeypatch.setattr(tracing, "host_read", lambda *a: calls.append("read") or read(*a))
+    rec = tracing.start()
+    try:
+        second = _VIEW_MK[kind](g)
+    finally:
+        tracing.stop()
+    assert calls == [] and rec.counters.get("host_syncs", 0) == 0
+    for f in ("src", "dst", "in_src", "in_dst", "out_deg"):
+        assert getattr(first._ea, f).data_ptr() == getattr(second._ea, f).data_ptr()
+    host = "_deg_host" if kind.startswith("pr") else "_out_deg_host"
+    assert getattr(first, host) is getattr(second, host)
+    assert not getattr(second, host).flags.writeable
+    want = g.in_degrees() if kind == "pr_pull" else g.out_degrees()
+    np.testing.assert_array_equal(getattr(second, host), want.numpy())

@@ -83,14 +83,60 @@ def test_resolve_backend_passes_instances_and_refuses_bad_specs():
 
 
 def test_prepare_is_memoized_per_executor_prep_pair(graphs):
-    for name, (alg, core) in packages().items():
-        backend = core.ModeledBackend()
-        ex = alg.PageRankExecutor(graphs[name], mode="pull", max_iters=2, tol=0)
-        ex.start()
-        prep = object()
-        plan = backend.prepare(ex, prep)
-        assert backend.prepare(ex, prep) is plan
-        assert backend.prepare(ex, object()) is not plan
+    """The reference memoizes its plans; the port keeps none (below)."""
+    alg, core = packages()["jax"]
+    backend = core.ModeledBackend()
+    ex = alg.PageRankExecutor(graphs["jax"], mode="pull", max_iters=2, tol=0)
+    ex.start()
+    prep = object()
+    plan = backend.prepare(ex, prep)
+    assert backend.prepare(ex, prep) is plan
+    assert backend.prepare(ex, object()) is not plan
+
+
+def test_plans_of_one_graph_share_one_handle(graphs):
+    """Every plan is new, carries its own (executor, prep), and plans of one
+    graph and lowering share the graph's one staged handle; executors
+    without a lowering share the inline handle."""
+    g = graphs["torch"]
+    backend = tcore.CudaBackend()
+    a, b = (talg.PageRankExecutor(g, mode="pull", max_iters=2, tol=0) for _ in range(2))
+    p1, p2 = object(), object()
+    plan = backend.prepare(a, p1)
+    again, other = backend.prepare(a, p1), backend.prepare(b, p2)
+    assert again is not plan and (again.executor, again.prep) == (a, p1)
+    assert (other.executor, other.prep) == (b, p2)
+    assert plan.handle is again.handle is other.handle and plan.handle.kind == "pr_pull"
+    bfs = [backend.prepare(talg.BFSExecutor(g, s), p1).handle for s in (0, 1)]
+    assert bfs[0] is bfs[1] and bfs[0].kind == "bfs" and bfs[0] is not plan.handle
+    push = [backend.prepare(talg.PageRankExecutor(g, mode="push"), p1).handle for _ in range(2)]
+    assert push[0] is push[1] and push[0].kind == "inline"
+    for b in (tcore.ModeledBackend(), tcore.InlineBackend()):
+        plan = b.prepare(a, p1)
+        assert b.prepare(a, p1) is not plan and (plan.executor, plan.prep) == (a, p1)
+
+
+@pytest.mark.parametrize("backend", ["modeled", "inline", "cuda"])
+def test_backend_retains_no_executor(graphs, backend):
+    """Once ``run_sessions`` returns and the caller drops its executors,
+    nothing keeps them alive: not the backend, which lives on."""
+    import gc
+    import weakref
+
+    b = tcore.resolve_backend(backend)
+    eng = _engine(tcore, b, pool_capacity=16)
+    mk, refs = _mixed_mk(talg, graphs["torch"]), []
+
+    def make(s, q):
+        ex = mk(s, q)
+        refs.append(weakref.ref(ex))
+        return ex
+
+    rep = eng.run_sessions(make, sessions=16, queries_per_session=1,
+                           config=tcore.EngineConfig(steal=True))
+    assert len(rep.records) == len(refs) == 16
+    gc.collect()
+    assert eng.backend is b and all(r() is None for r in refs)
 
 
 # ---------------- modeled echo ----------------
@@ -194,9 +240,8 @@ _LOWERING_MK = {
 def _forced_width_run(monkeypatch, g, kind, width, domains):
     """Two sessions of ``kind`` through a ``CudaBackend`` that hands every
     step to its lowering at gang width ``width``. Returns the results, for
-    each lowered ``execute`` the kernel calls it made, its merged package
-    ranges, whether any call ran on the plan's shard slab and whether the
-    plan has one, and the iterations (levels, for BFS) the queries
+    each lowered ``execute`` the kernel calls it made and its merged
+    package ranges, and the iterations (levels, for BFS) the queries
     committed."""
     import repro_torch.kernels.degree_count.ops as dc_ops
     import repro_torch.kernels.spmv.ops as spmv_ops
@@ -205,9 +250,9 @@ def _forced_width_run(monkeypatch, g, kind, width, domains):
     mod, name = (dc_ops, "count_into") if kind == "degree_count" else (spmv_ops, "spmv_tiles")
     real, seen = getattr(mod, name), []
 
-    def counted(tables, *args):
-        seen.append(tables)
-        return real(tables, *args)
+    def counted(*args):
+        seen.append(args[0])
+        return real(*args)
 
     steps = []
 
@@ -216,9 +261,7 @@ def _forced_width_run(monkeypatch, g, kind, width, domains):
             step = dataclasses.replace(step, workers=width)
             n0 = len(seen)
             ns = super().execute(plan, step, modeled_ns)
-            slab = plan.handle.slab
-            steps.append((len(seen) - n0, len(merge_ranges(plan.prep.packages.bounds, step.batch)),
-                          any(t is slab for t in seen[n0:]), slab is not None))
+            steps.append((len(seen) - n0, len(merge_ranges(plan.prep.packages.bounds, step.batch))))
             return ns
 
     made = []
@@ -242,22 +285,19 @@ def test_cuda_backend_one_launch_per_merged_range(graphs, monkeypatch, kind, dom
     """Every merged package range of a step is one kernel call (``spmv_tiles``,
     or ``count_into`` for degree counts), whatever the step's gang width, and
     the answers equal width 1's to the bit; BFS makes at most one call a
-    step, one for each level committed; with two locality domains the
-    PR-pull ranges inside the plan's shard run on its slab."""
+    step, one for each level committed; two locality domains change
+    neither."""
     g = graphs["torch"]
     got, steps, levels = _forced_width_run(monkeypatch, g, kind, width, domains)
     want, _, _ = _forced_width_run(monkeypatch, g, kind, 1, domains)
     assert steps
     if kind == "bfs":
-        assert all(calls <= 1 for calls, *_ in steps)
-        assert sum(calls for calls, *_ in steps) == levels
+        assert all(calls <= 1 for calls, _ in steps)
+        assert sum(calls for calls, _ in steps) == levels
     else:
-        assert all(calls == ranges for calls, ranges, _, _ in steps)
+        assert all(calls == ranges for calls, ranges in steps)
     for a, b in zip(got, want):
         assert torch.equal(torch.from_numpy(a), torch.from_numpy(b))
-    if domains > 1:
-        assert all(has_slab for *_, has_slab in steps)
-        assert any(on_slab for _, _, on_slab, _ in steps)
 
 
 def test_cuda_backend_bfs_sweeps_once_per_level(graphs12):

@@ -117,7 +117,7 @@ def test_spmv_hub_rows_above_block_edges(cuda, hub):
     """A row just past BLOCK_EDGES (two pieces, the second of one edge), an
     exact multiple, and one as long as RMAT sf20's largest, beside rows of
     every length up to BLOCK_EDGES; a range that starts and ends inside the
-    table, on the full tables and on a slab, same bits twice."""
+    table, same bits twice."""
     rng = np.random.default_rng(hub)
     lens = np.r_[rng.integers(0, 40, 3000), [hub, BLOCK_EDGES, BLOCK_EDGES // 2 + 1, 33, 32, 0]]
     targets = np.repeat(rng.permutation(lens.shape[0]), lens)
@@ -132,21 +132,8 @@ def test_spmv_hub_rows_above_block_edges(cuda, hub):
         want = spmv_rows_plain(tables.row_ptr[a * 512 : b * 512 + 1], tables.src, c).reshape(b - a, 512)
         torch.testing.assert_close(got, want, rtol=SPMV_RTOL, atol=SPMV_ATOL)
         assert torch.equal(got, again) and torch.equal(got.reshape(-1), full.reshape(-1)[a * 512 : b * 512])
-        slab = tables.slab(a, b)
-        assert torch.equal(spmv_tiles(slab, c, 0, b - a), got)
     counts = spmv_tiles(tables, torch.ones(v, device=cuda), 0, t).reshape(-1)[:v]
     assert torch.equal(counts.cpu(), torch.from_numpy(np.bincount(targets, minlength=v).astype(np.float32)))
-
-
-def test_spmv_slab_on_card(cuda):
-    src, dst, contrib = _edges(3000, 40000, 13, np.r_[0:3000, [2100] * 900])
-    tables = build_tiles(torch.from_numpy(src).to(cuda), torch.from_numpy(dst).to(cuda), 3000)
-    c = torch.from_numpy(contrib).to(cuda)
-    slab = tables.slab(2, 6)
-    pieces = slab.blocks[0][slab.blocks[1] >= 0].tolist()
-    n = int(np.count_nonzero(dst == 2100))  # a ~9k-edge hub row, in pieces
-    assert pieces == [2100 - 2 * 512] * -(-n // BLOCK_EDGES)
-    assert torch.equal(spmv_tiles(slab, c, 0, 4), spmv_tiles(tables, c, 2, 6))
 
 
 def test_degree_count_kernel_matches_plain(cuda):

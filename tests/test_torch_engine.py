@@ -227,9 +227,10 @@ def test_cuda_backend_inline_fallback_without_lowering(graphs):
     np.testing.assert_array_equal(dob.result(), talg.bfs_reference(g, src))
 
 
-def test_cuda_backend_shard_slab_dispatch(graphs):
-    """With locality domains the PR-pull plan stages its shard's slab;
-    results stay exact and the modeled clock matches the modeled backend."""
+def test_cuda_backend_exact_with_two_domains(graphs):
+    """With two locality domains the PR-pull plans dispatch against the
+    whole graph's tables: results stay exact, and the modeled clock and
+    the schedule traces match the modeled backend's."""
     g = graphs["torch"]
     kw = dict(sessions=4, pool=16, steal=True, domains=2)
     mrep, _ = _run("torch", g, _pr_pull, backend="modeled", **kw)
@@ -237,6 +238,8 @@ def test_cuda_backend_shard_slab_dispatch(graphs):
     for ex in made:
         _oracle_check(g, ex)
     assert crep.makespan_modeled_ns == mrep.makespan_modeled_ns
+    assert [r.modeled_ns for r in crep.records] == [r.modeled_ns for r in mrep.records]
+    assert [r.traces for r in crep.records] == [r.traces for r in mrep.records]
 
 
 def test_resolve_backend_specs():

@@ -426,8 +426,8 @@ def _scaled_backend(core, factor=20.0):
         def __init__(self):
             self._inner = core.ModeledBackend()
 
-        def prepare(self, executor, prep, shard=None):
-            return self._inner.prepare(executor, prep, shard)
+        def prepare(self, executor, prep):
+            return self._inner.prepare(executor, prep)
 
         def execute(self, plan, step, modeled_ns=0.0):
             return self._inner.execute(plan, step, modeled_ns) * factor

@@ -103,19 +103,6 @@ def test_build_tiles_layout():
     assert tables.scratch.shape == (2, 16) and not tables.scratch.any()
 
 
-def test_spmv_slab_matches_full_tables():
-    src, dst, contrib = _edges(2000, 12000, 7, targets=np.r_[0:2000, [1500] * 2000])
-    tables = build_tiles(torch.from_numpy(src), torch.from_numpy(dst), 2000)
-    slab = tables.slab(1, 3)
-    assert slab.row_ptr[0] == 0 and slab.src.shape[0] == int(slab.row_ptr[-1])
-    c = torch.from_numpy(contrib)
-    torch.testing.assert_close(spmv_tiles(slab, c, 0, 2), spmv_tiles(tables, c, 1, 3), rtol=0, atol=0)
-    # the ~6k-edge hub row 1500 is the slab's row 988, in pieces
-    n = int(np.count_nonzero(dst == 1500))
-    pieces = slab.blocks[0][slab.blocks[1] >= 0]
-    assert n > BLOCK_EDGES and pieces.tolist() == [1500 - 512] * -(-n // BLOCK_EDGES)
-
-
 def test_block_edges_match_kernel_source():
     """The host cuts rows into blocks of at most BLOCK_EDGES edges; the
     kernel's shared memory and its piece offsets are sized by its
@@ -197,23 +184,6 @@ def test_row_blocks_partition(graph, block_edges):
         assert torch.equal(blocks, tables.blocks) and np.array_equal(tile_blocks.numpy(), tables.tile_blocks)
     if graph == "one_hub_tile":  # the ~20k hub and the ~3k row in pieces, or the ~3k row whole
         assert np.count_nonzero(blocks[1].numpy() >= 0) == {512: 40 + 6, 1024: 20 + 3, 4096: 5}[block_edges]
-
-
-@pytest.mark.parametrize("graph", PARTITION_GRAPHS)
-def test_row_blocks_of_a_slab_are_the_rebased_slice(graph):
-    src, dst, v = _partition_graph(graph)
-    tables = build_tiles(torch.from_numpy(src), torch.from_numpy(dst), v)
-    t = tables.n_tiles
-    for a, b in {(0, t), (0, max(t // 2, 1)), (t // 2, t), (t - 1, t)}:
-        if a >= b:
-            continue
-        slab = tables.slab(a, b)
-        i0, i1 = int(tables.tile_blocks[a]), int(tables.tile_blocks[b])
-        np.testing.assert_array_equal(slab.tile_blocks, tables.tile_blocks[a : b + 1] - i0)
-        np.testing.assert_array_equal(slab.blocks[0].numpy(), tables.blocks[0, i0 : i1 + 1].numpy() - a * DST_TILE)
-        np.testing.assert_array_equal(slab.blocks[1, :-1].numpy(), tables.blocks[1, i0:i1].numpy())
-        assert slab.scratch.shape == (2, i1 - i0) and not slab.scratch.any()
-        _check_partition(slab.row_ptr, slab.blocks, slab.tile_blocks, BLOCK_EDGES)
 
 
 @pytest.mark.parametrize("num_counters", [2048, 4096, 1000, 3001])

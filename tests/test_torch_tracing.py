@@ -112,24 +112,27 @@ def test_span_names_are_the_documented_set(graphs, cuda_flagged, case):
 
 
 @pytest.mark.parametrize("kind", ["pr", "bfs"])
-def test_host_syncs_equal_a_hand_count(graphs, cuda_flagged, kind):
-    """One query alone. Both kinds: one read of the executor's degrees when
-    it is made, one synchronize a step, and the kernel's warm-up synchronize
-    in the backend's first prepare. PageRank adds the first prepare's read
-    of the in-edge offsets and its delta each iteration (5). BFS adds, at
-    each frontier call, the visited count and (but the first) the frontier
-    copy, and the frontier count at each iteration's end."""
-    rec, rep, _ = _traced_round(kind, graphs["rmat"], sessions=1)
-    names = [s[0] for s in rec.spans]
-    steps, fronts = names.count("backend.execute"), names.count("executor.frontier")
-    (r,) = rep.records
-    if kind == "pr":
-        assert r.iterations == 5
-        want = 1 + steps + 1 + 1 + 5
-    else:
-        assert fronts == r.iterations > 1
-        want = 1 + steps + 1 + fronts + (fronts - 1) + r.iterations
-    assert rec.counters["host_syncs"] == want
+def test_host_syncs_equal_a_hand_count(cuda_flagged, kind):
+    """One query alone, twice on one new graph. Both kinds: one read of the
+    graph's degrees when its first executor is made (the second query's
+    executor borrows it), one synchronize a step, and the kernel's warm-up
+    synchronize in the backend's first prepare. PageRank adds the first
+    prepare's read of the in-edge offsets and its delta each iteration (5).
+    BFS adds, at each frontier call, the visited count and (but the first)
+    the frontier copy, and the frontier count at each iteration's end."""
+    graph = rmat_graph(10, seed=3, device="cpu")
+    for degree_reads in (1, 0):
+        rec, rep, _ = _traced_round(kind, graph, sessions=1)
+        names = [s[0] for s in rec.spans]
+        steps, fronts = names.count("backend.execute"), names.count("executor.frontier")
+        (r,) = rep.records
+        if kind == "pr":
+            assert r.iterations == 5
+            want = degree_reads + steps + 1 + 1 + 5
+        else:
+            assert fronts == r.iterations > 1
+            want = degree_reads + steps + 1 + fronts + (fronts - 1) + r.iterations
+        assert rec.counters["host_syncs"] == want
 
 
 @pytest.mark.parametrize("graph", ["rmat", "lattice"])
