@@ -822,9 +822,9 @@ def graph_path(dev: torch.device, bw: float) -> list[dict]:
     # ops.spmv_tiles at each call)
     sizes: list[int] = []
 
-    def counted(tables, c, t0, t1):
+    def counted(tables, c, t0, t1, out=None):
         sizes.append(t1 - t0)
-        return spmv_tiles(tables, c, t0, t1)
+        return spmv_tiles(tables, c, t0, t1, out)
 
     spmv_ops.spmv_tiles = counted
     try:

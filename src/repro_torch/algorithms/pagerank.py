@@ -192,8 +192,13 @@ class PageRankExecutor:
     def apply_pull_aggregate(self, agg: torch.Tensor, lo: int, hi: int, edges: float) -> None:
         """Fold a backend-computed pull partial for targets [lo, hi) into the
         accumulator — identical bookkeeping to ``run_packages`` on that range
-        (coverage tracking, edge count, end-of-iteration commit)."""
-        self._acc = self._acc + agg
+        (coverage tracking, edge count, end-of-iteration commit).
+
+        ``agg`` is indexed by target (``[V]`` or longer), but only its lanes
+        ``[lo, hi)`` are defined: the rest may hold another range's sums.
+        They are added into the accumulator's own lanes in place; no other
+        lane is touched."""
+        self._acc[lo:hi].add_(agg[lo:hi])
         self._edges += float(edges)
         self._covered += hi - lo
         if self._covered >= self._ea.num_vertices:

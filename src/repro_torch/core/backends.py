@@ -25,9 +25,11 @@ of three substrates:
   only do their bookkeeping. The gang width sets the modeled
   cost, Algorithm 1's bounds, packaging and stealing, and its measured
   nanoseconds flow into the feedback tables; it does not set the launch
-  count. Package ranges are widened to tile boundaries and the
-  out-of-range lanes masked off before the result is applied (unpadding),
-  so results stay exact. Algorithms without a kernel lowering (PR-push,
+  count. A PageRank-pull range is widened to tile boundaries for the
+  launch, which writes the row sums into the graph's row buffer at their
+  own rows; the executor then adds only the range's lanes into its
+  accumulator, in place, so results stay exact and nothing ``[V]``-wide is
+  made a range. Algorithms without a kernel lowering (PR-push,
   direction-optimized BFS) run the inline path.
 
 The protocol splits *preparation* from *execution* deliberately:
@@ -62,8 +64,9 @@ class DevicePlan:
     """Backend-prepared execution state for one (executor, prep) pair.
 
     ``handle`` is backend-private (device tile tables, prefix sums for
-    unpadding) and shared by every plan on the same graph; the engine only
-    ever passes the plan back to the backend that built it."""
+    edge counts, a row buffer) and shared by every plan on the same graph;
+    the engine only ever passes the plan back to the backend that built
+    it."""
 
     executor: "QueryExecutor"
     prep: "PreparedIteration"
@@ -173,6 +176,7 @@ class _CudaHandle:
     tables: Any = None             # SpmvTiles: ragged dst tiles (spmv kinds)
     num_vertices: int = 0
     edge_prefix: np.ndarray | None = None  # [V+1] in-edges with dst < v (pr_pull)
+    rows: torch.Tensor | None = None  # [n_tiles * DST_TILE] float32: launches' row sums (pr_pull)
     ids: Any = None                # [2, E] int32 endpoint ids mod C (degree_count)
 
 
@@ -185,14 +189,16 @@ class CudaBackend:
 
     Lowerings, each one kernel launch per merged package range whatever
     the step's gang width (BFS: one per level; see the module docstring
-    for why, and for the padding/unpadding contract):
+    for why):
 
     * ``pagerank_pull`` — a package batch is a contiguous range of *target*
       vertices; the ragged dst-tile layout built by
       ``kernels/spmv/ops.build_tiles`` is sliced to the tiles covering the
-      range, the SpMV kernel sums each target's in-edges, and lanes outside
-      the range are masked off before the partial is applied to the
-      executor's accumulator.
+      range, and the SpMV kernel writes each target's in-edge sum into the
+      graph's row buffer at the target's own row. The executor adds lanes
+      ``[lo, hi)`` of the buffer into its accumulator in place; the
+      buffer's other lanes hold whatever an earlier launch left and are
+      never read.
     * ``bfs_top_down`` — frontier expansion *is* an SpMV over the boolean
       semiring: contributions are the indicator of the whole frontier, the
       kernel counts per-target frontier parents over the dst-tiled
@@ -283,6 +289,9 @@ class CudaBackend:
                 tables=tables,
                 num_vertices=nv,
                 edge_prefix=tracing.host_read(tables.row_ptr[: nv + 1]).numpy(),
+                rows=torch.zeros(
+                    (tables.n_tiles * DST_TILE,), dtype=torch.float32, device=tables.src.device
+                ),
             )
             self._warm_spmv(handle)
         elif kind == "bfs":
@@ -308,12 +317,13 @@ class CudaBackend:
         return handle
 
     # ---------------------------------------------------------- execution
-    def _spmv_range(self, handle: _CudaHandle, contrib, t0: int, t1: int):
+    def _spmv_range(self, handle: _CudaHandle, contrib, t0: int, t1: int, out=None):
         """Aggregate dst tiles [t0, t1) in one launch; returns the flat
-        [(t1-t0)*tile] per-target sums."""
+        [(t1-t0)*tile] per-target sums (a view of ``out`` when given)."""
         from ..kernels.spmv.ops import spmv_tiles
 
-        return spmv_tiles(handle.tables, contrib, t0, t1).reshape(-1)
+        # ``out`` goes positionally: wrappers of spmv_tiles pass *args on
+        return spmv_tiles(handle.tables, contrib, t0, t1, out).reshape(-1)
 
     def _ranges(self, plan: DevicePlan, step: "ScheduleStep") -> list[tuple[int, int]]:
         """The batch's contiguous frontier-slot ranges."""
@@ -327,16 +337,12 @@ class CudaBackend:
         h = plan.handle
         ex = plan.executor
         tile = DST_TILE
+        # the launch writes rows [t0, t1) * tile of the buffer; the executor
+        # reads lanes [lo, hi) of it, at the same absolute indices
+        agg = h.rows[: h.num_vertices]
         for lo, hi in self._ranges(plan, step):
             t0, t1 = lo // tile, -(-hi // tile)
-            flat = self._spmv_range(h, ex.contrib, t0, t1)
-            # unpad: mask lanes outside [lo, hi) before applying the partial
-            base = t0 * tile
-            ids = base + torch.arange(flat.shape[0], device=flat.device)
-            masked = torch.where((ids >= lo) & (ids < hi), flat, 0.0)
-            agg = torch.zeros((h.num_vertices,), dtype=flat.dtype, device=flat.device)
-            end = min(base + flat.shape[0], h.num_vertices)
-            agg[base:end] = masked[: end - base]
+            self._spmv_range(h, ex.contrib, t0, t1, h.rows[t0 * tile : t1 * tile])
             edges = float(h.edge_prefix[hi] - h.edge_prefix[lo])
             with tracing.span("executor.apply"):
                 ex.apply_pull_aggregate(agg, lo, hi, edges)

@@ -106,22 +106,26 @@ def build_tiles(src: torch.Tensor, dst: torch.Tensor, num_vertices: int) -> Spmv
     )
 
 
-def spmv_tiles(tables: SpmvTiles, contrib: torch.Tensor, t0: int, t1: int) -> torch.Tensor:
+def spmv_tiles(
+    tables: SpmvTiles, contrib: torch.Tensor, t0: int, t1: int, out: torch.Tensor | None = None
+) -> torch.Tensor:
     """Per-target sums for tiles [t0, t1) of ``tables``: ``[t1 - t0, DST_TILE]``
-    float32, zeros for targets past the last vertex. A CUDA tensor goes to
-    the kernel, a CPU tensor to the plain version; a ``meta`` tensor gets
-    the output's shape alone."""
+    float32, zeros for targets past the last vertex. ``out``, when given, is
+    a contiguous float32 view of exactly those ``(t1 - t0) * DST_TILE`` rows
+    that the sums are written into (and the result views) instead of a new
+    tensor. A CUDA tensor goes to the kernel, a CPU tensor to the plain
+    version; a ``meta`` tensor gets the output's shape alone."""
     r0, r1 = t0 * DST_TILE, t1 * DST_TILE
     if contrib.device.type == "cuda":
         out = spmv_rows_cuda(
             tables.row_ptr, tables.src, contrib, tables.blocks, tables.scratch,
             block_lo=int(tables.tile_blocks[t0]), block_hi=int(tables.tile_blocks[t1]),
-            row_base=r0, n_rows=r1 - r0,
+            row_base=r0, n_rows=r1 - r0, out=out,
         )
     elif contrib.device.type == "cpu":
-        out = spmv_rows_plain(tables.row_ptr[r0 : r1 + 1], tables.src, contrib)
+        out = spmv_rows_plain(tables.row_ptr[r0 : r1 + 1], tables.src, contrib, out)
     elif contrib.device.type == "meta":  # the dry-run's trace: the plain version's shape and type, no work
-        out = contrib.new_empty(r1 - r0)
+        out = contrib.new_empty(r1 - r0) if out is None else out
     else:
         raise ValueError(f"spmv: unsupported device {contrib.device}")
     return out.reshape(t1 - t0, DST_TILE)

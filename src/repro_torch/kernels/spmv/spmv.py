@@ -21,9 +21,12 @@ DST_TILE = 512       # targets per tile, as in the TPU kernel
 BLOCK_EDGES = 1024   # edges per row block and per piece of a long row (kBlockEdges in csrc/spmv.cu)
 
 
-def spmv_rows_plain(row_ptr: torch.Tensor, src: torch.Tensor, contrib: torch.Tensor) -> torch.Tensor:
+def spmv_rows_plain(
+    row_ptr: torch.Tensor, src: torch.Tensor, contrib: torch.Tensor, out: torch.Tensor | None = None
+) -> torch.Tensor:
     """Plain PyTorch version: gather, then a segment sum per row of
-    ``row_ptr`` (``R + 1`` offsets, ``[R]`` out)."""
+    ``row_ptr`` (``R + 1`` offsets, ``[R]`` out, written into ``out`` when
+    one is given)."""
     n_rows = row_ptr.shape[0] - 1
     e0, e1 = int(row_ptr[0]), int(row_ptr[-1])
     rows = torch.repeat_interleave(
@@ -32,7 +35,10 @@ def spmv_rows_plain(row_ptr: torch.Tensor, src: torch.Tensor, contrib: torch.Ten
         output_size=e1 - e0,
     )
     vals = contrib[src[e0:e1].to(torch.int64)]
-    out = torch.zeros(n_rows, dtype=contrib.dtype, device=contrib.device)
+    if out is None:
+        out = torch.zeros(n_rows, dtype=contrib.dtype, device=contrib.device)
+    else:
+        out.zero_()
     return out.index_add_(0, rows, vals)
 
 
@@ -59,10 +65,13 @@ def spmv_rows_cuda(
     block_hi: int,
     row_base: int,
     n_rows: int,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream over the layout's row
     blocks ``[block_lo, block_hi)``, which must cover exactly the rows
-    ``[row_base, row_base + n_rows)`` of the table.
+    ``[row_base, row_base + n_rows)`` of the table. The sums go to ``out``
+    when one is given (a contiguous float32 ``[n_rows]`` tensor on the
+    card: every row is written), else to a new tensor.
 
     ``row_ptr`` (int64) and ``src`` (int32) are the whole table's;
     ``blocks`` is the layout's int32 ``[2, NB + 1]`` (first row of each
@@ -89,7 +98,11 @@ def spmv_rows_cuda(
         raise ValueError("spmv_rows_cuda: blocks must be [2, NB + 1] and scratch [2, NB]")
     if not 0 <= block_lo <= block_hi <= n_blocks:
         raise ValueError(f"spmv_rows_cuda: blocks [{block_lo}, {block_hi}) outside [0, {n_blocks})")
-    out = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    elif (out.device != dev or out.dtype != torch.float32 or out.shape != (n_rows,)
+          or not out.is_contiguous()):
+        raise ValueError(f"spmv_rows_cuda: out must be a contiguous float32 [{n_rows}] tensor on {dev}")
     if n_rows <= 0:
         return out
     base = blocks.data_ptr()

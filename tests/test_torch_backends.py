@@ -332,6 +332,98 @@ def test_cuda_backend_bfs_sweeps_once_per_level(graphs12):
         assert ex.edges_traversed() == inline.edges_traversed()
 
 
+class _NewTensorsOfSize(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records the ops that make a tensor of ``n`` elements whose storage
+    none of their inputs holds (views and in-place results alias an input),
+    except while ``paused``."""
+
+    def __init__(self, n):
+        super().__init__()
+        self.n, self.paused, self.made = n, False, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not self.paused:
+            held = {t.untyped_storage().data_ptr()
+                    for t in torch.utils._pytree.tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)}
+            for t in torch.utils._pytree.tree_leaves(out):
+                if (isinstance(t, torch.Tensor) and t.numel() == self.n
+                        and t.untyped_storage().data_ptr() not in held):
+                    self.made.append(str(func))
+        return out
+
+
+@pytest.mark.parametrize("domains", [1, 2])
+@pytest.mark.parametrize("width", [1, 4, 19, 56])
+def test_cuda_backend_pr_pull_applies_its_range_in_place(graphs12, monkeypatch, width, domains):
+    """pr_pull applies its range in place: four PageRank-pull sessions at a
+    forced gang width give ranks and ``edges_traversed`` equal to the bit
+    to the earlier seam's (the unpadding into a new ``[V]`` vector and a
+    full add, ``tests/_torch_pull.py``); every mid-iteration ``execute``
+    leaves the accumulator's storage where it was and its lanes outside the
+    step's ranges bitwise untouched, and, outside ``spmv_tiles``, makes no
+    tensor of V elements."""
+    import repro_torch.kernels.spmv.ops as spmv_ops
+    from _torch_pull import UnpaddingCudaBackend
+    from repro_torch.algorithms.common import merge_ranges
+
+    g = graphs12["torch"]
+    nv = g.num_vertices
+    watch = _NewTensorsOfSize(nv)
+    real = spmv_ops.spmv_tiles
+
+    def unwatched(*args):
+        watch.paused = True
+        try:
+            return real(*args)
+        finally:
+            watch.paused = False
+
+    mid = []
+
+    class Watched(tcore.CudaBackend):
+        def execute(self, plan, step, modeled_ns=0.0):
+            step = dataclasses.replace(step, workers=width)
+            ex = plan.executor
+            acc, it = ex._acc, ex._iter
+            ptr = acc.data_ptr()
+            before = acc.clone()
+            watch.made = []
+            with watch:
+                ns = super().execute(plan, step, modeled_ns)
+            if ex._iter == it:  # the step did not end the iteration
+                outside = torch.ones(nv, dtype=torch.bool)
+                for lo, hi in merge_ranges(plan.prep.packages.bounds, step.batch):
+                    outside[lo:hi] = False
+                assert ex._acc is acc and acc.data_ptr() == ptr
+                assert torch.equal(ex._acc.view(torch.int32)[outside], before.view(torch.int32)[outside])
+                assert watch.made == [], watch.made
+                mid.append(int(outside.sum()))
+            return ns
+
+    def run(backend):
+        made = []
+
+        def mk(s, q):
+            made.append(talg.PageRankExecutor(g, mode="pull", max_iters=3, tol=0))
+            return made[-1]
+
+        eng = tcore.MultiQueryEngine(tcore.XEON_E5_2660V4, pool_capacity=16, policy="scheduler")
+        eng.run_sessions(mk, sessions=4, queries_per_session=1,
+                         config=tcore.EngineConfig(steal=True, domains=domains, backend=backend))
+        assert eng.pool.available == eng.pool.capacity
+        return [(ex.result(), ex.edges_traversed()) for ex in made]
+
+    with monkeypatch.context() as m:
+        m.setattr(spmv_ops, "spmv_tiles", unwatched)
+        got = run(Watched())
+    want = run(UnpaddingCudaBackend())
+    assert mid and max(mid) > 0  # mid-iteration steps that left lanes alone
+    for (rank, edges), (rank0, edges0) in zip(got, want):
+        assert np.array_equal(rank.view(np.int32), rank0.view(np.int32))
+        assert edges == edges0 == g.num_edges * 3
+
+
 # ---------------- measured time reaches the feedback loop ----------------
 
 def _skew_mk(alg, graph):

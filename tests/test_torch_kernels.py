@@ -74,6 +74,25 @@ def test_spmv_matches_pallas(case):
         np.testing.assert_array_equal(got[want == 0], 0.0)
 
 
+@pytest.mark.parametrize("case", sorted(SPMV_CASES))
+def test_spmv_tiles_writes_into_out(case):
+    """With ``out`` (a view of a longer buffer at the range's own rows) the
+    sums equal a fresh call's to the bit, the result views the buffer, and
+    no row of the buffer outside the range is written."""
+    v, e, seed, targets, ranges = SPMV_CASES[case]
+    src, dst, contrib = _edges(v, e, seed, targets=targets)
+    tables = build_tiles(torch.from_numpy(src), torch.from_numpy(dst), v)
+    c = torch.from_numpy(contrib)
+    for a, b in ranges:
+        buf = torch.full((tables.n_tiles * DST_TILE,), float("nan"))
+        got = spmv_tiles(tables, c, a, b, buf[a * DST_TILE : b * DST_TILE])
+        assert got.data_ptr() == buf.data_ptr() + 4 * a * DST_TILE and got.shape == (b - a, DST_TILE)
+        assert torch.equal(got.view(torch.int32), spmv_tiles(tables, c, a, b).view(torch.int32))
+        assert torch.isnan(buf[: a * DST_TILE]).all() and torch.isnan(buf[b * DST_TILE :]).all()
+        meta = torch.empty((b - a) * DST_TILE, device="meta")
+        assert spmv_tiles(tables, c.to("meta"), a, b, meta).shape == (b - a, DST_TILE)
+
+
 def test_spmv_matches_coo_oracle():
     src, dst, contrib = _edges(1300, 9000, 6)
     tables = build_tiles(torch.from_numpy(src), torch.from_numpy(dst), 1300)
